@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tpuslam.kernels import match as jm
+from tpuslam.kernels.orb import unpack_descriptor_bits as j_unpack_bits
 from tpuslam.kernels.pallas_match import _dense_top2, hamming_top2 as pallas_top2
 from tpuslam_torch.kernels import cuda_match
 from tpuslam_torch.kernels import match as tm
@@ -166,6 +167,113 @@ def test_gates_match_reference(name):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+# --- the exactness arguments of kernel K2's design ---------------------------
+
+
+def _pm1_bytes(words):
+    """(n, 8) uint32 -> (n, 256) int8 in {-1, +1} by the kernel's arithmetic:
+    nibble q of a word becomes fragment register q, byte j = bit 4q + j."""
+    w = words.astype(np.uint64)
+    regs = []
+    for q in range(8):
+        s = (((w >> (4 * q)) & 15) * 0x00204081) & 0x01010101
+        regs.append((~(s * 0xFE)) & 0xFFFFFFFF)
+    regs = np.stack(regs, axis=2).astype(np.uint32)  # (n, word, q)
+    return regs.view(np.int8).reshape(len(words), 256)  # little-endian: byte j of register q
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pm1_int8_dot_gives_the_popcount_distance(seed):
+    a, b = _desc(40, seed), _desc(50, seed + 7)
+    a[0], a[1] = 0, 0xFFFFFFFF
+    b[0], b[1] = a[1], ~a[2]
+    A, B = _pm1_bytes(a), _pm1_bytes(b)
+    bits_a = np.asarray(j_unpack_bits(jnp.asarray(a))).astype(np.int8)
+    np.testing.assert_array_equal(A, 2 * bits_a - 1)  # the same bit order as the reference
+    dot = A.astype(np.int32) @ B.astype(np.int32).T
+    assert ((256 - dot) % 2 == 0).all()
+    ham = (256 - dot) // 2
+    popcount = np.unpackbits((a[:, None, :] ^ b[None, :, :]).view(np.uint8), axis=-1).sum(-1)
+    np.testing.assert_array_equal(ham, popcount)
+    np.testing.assert_array_equal(ham, np.asarray(jm.hamming_matrix(jnp.asarray(a), jnp.asarray(b))))
+    assert ham[1, 0] == 0 and ham[2, 1] == 256
+
+
+NONE = np.iinfo(np.int64).max
+
+
+def _fold(dist, cols):
+    """Running (best, idx, second) over the columns, in the given (ascending)
+    order, as one lane folds its accumulator fragment."""
+    n = dist.shape[0]
+    best, idx, second = np.full(n, NONE), np.full(n, NONE), np.full(n, NONE)
+    for c in cols:
+        d = dist[:, c]
+        lt = d < best
+        second = np.where(lt, best, np.where(d < second, d, second))
+        best, idx = np.where(lt, d, best), np.where(lt, c, idx)
+    return best, idx, second
+
+
+def _merge(x, y):
+    (bx, ix, sx), (by, iy, sy) = x, y
+    take = (by < bx) | ((by == bx) & (iy < ix))
+    return np.where(take, by, bx), np.where(take, iy, ix), np.where(take, np.minimum(sy, bx), np.minimum(sx, by))
+
+
+def _kernel_order_top2(dist, split=4, warps=8, chunk=32):
+    """The kernel's partition of the columns and its merge order: slices of a
+    cluster, warps taking 32 columns at a time, lanes t owning columns
+    2t, 2t+1 of each n8 tile; lanes merged by an xor tree, warps in order,
+    slices in order."""
+    m = dist.shape[1]
+    width = -(-m // split)
+    slices = []
+    for r in range(split):
+        c0, c1 = min(m, r * width), min(m, r * width + width)
+        per_warp = []
+        for w in range(warps):
+            lanes = [_fold(dist, [c for cb in range(c0 + w * chunk, c1, warps * chunk)
+                                  for nt in range(4) for e in range(2)
+                                  if (c := cb + 8 * nt + 2 * t + e) < c1]) for t in range(4)]
+            per_warp.append(_merge(_merge(lanes[0], lanes[1]), _merge(lanes[2], lanes[3])))
+        x = per_warp[0]
+        for y in per_warp[1:]:
+            x = _merge(x, y)
+        slices.append(x)
+    x = slices[0]
+    for y in slices[1:]:
+        x = _merge(x, y)
+    best, idx, second = x
+    return idx.astype(np.int32), best.astype(np.float32), np.minimum(second, 10**9).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["ties", "all_tied", "all_invalid", "m_1", "m_777"])
+def test_slice_merge_in_kernel_order_equals_dense_reference(case):
+    rng = np.random.RandomState(3)
+    n, m = 30, {"m_1": 1, "m_777": 777}.get(case, 300)
+    b = _desc(m, 11)
+    if case == "ties":
+        b[1::3] = b[0::3][: len(b[1::3])]  # every column has an earlier twin
+    if case == "all_tied":
+        b[:] = b[0]
+    a = _desc(n, 12)
+    a[:5] = b[:5]
+    valid = rng.rand(m) > 0.2
+    if case == "all_invalid":
+        valid[:] = False
+    if case == "m_1":
+        valid[:] = True
+    ref = [np.asarray(x) for x in _dense_top2(jnp.asarray(a), jnp.asarray(b), jnp.asarray(valid))]
+    dist = np.asarray(jm.hamming_matrix(jnp.asarray(a), jnp.asarray(b))).astype(np.int64)
+    dist = np.where(valid[None, :], dist, 10**9)
+    got = _kernel_order_top2(dist)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g, r)
+    if case in ("ties", "all_tied"):
+        assert (got[1] == got[2]).sum() >= 5  # tied minima surface as d2 == d1
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -183,3 +291,25 @@ def test_hamming_top2_kernel_matches_plain_on_card(cuda_device, shape):
     assert cuda_match.hamming_top2.launches == before + 1
     for g, r in zip(got, cuda_match.hamming_top2_plain(a, b, valid_b)):
         assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["1000x777", "m_1", "all_invalid", "all_tied"])
+def test_hamming_top2_kernel_edge_cases_match_plain_on_card(cuda_device, case):
+    a, b = _desc(1000, 4), _desc(1 if case == "m_1" else 777, 5)
+    if case == "all_tied":
+        b[:] = b[0]
+    valid = np.random.RandomState(2).rand(len(b)) > 0.2
+    if case in ("m_1", "all_invalid"):
+        valid[:] = case == "m_1"
+    a, b, valid = (_t(x).to(cuda_device) for x in (a, b, valid))
+    for g, r in zip(cuda_match.hamming_top2(a, b, valid), cuda_match.hamming_top2_plain(a, b, valid)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_hamming_top2_kernel_refuses_unaligned_descriptors(cuda_device):
+    a, b = (_t(_desc(n, s)).to(cuda_device) for n, s in ((9, 1), (17, 2)))
+    valid = torch.ones(16, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_match.hamming_top2(a, b.view(-1)[2:130].view(16, 8), valid)  # 8 bytes off

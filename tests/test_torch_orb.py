@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tpuslam.kernels import orb as jorb
 from tpuslam.kernels.pallas_fast import _HALO, fast_nms_score as pallas_fast_nms
@@ -155,6 +156,134 @@ def test_topk_stable_matches_lax_top_k_tie_order(seed):
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
 
 
+# --- the exactness arguments of kernel K1's design ---------------------------
+
+PRETEST_IMAGES = {
+    "random": lambda: np.random.RandomState(7).uniform(0, 255, (240, 320)).astype(np.float32),
+    "smoothed_noise": lambda: make_frames(1, 240, 320)[0],
+}
+
+
+def _pretest_keep(pyr, kind, weak_th=7.0):
+    """Plain-torch early rejection: False only where FAST cannot fire.
+
+    ``compass``: at least two of ring positions 0, 4, 8, 12 bright, or two
+    dark (any 9 consecutive positions hold two of them).  ``even_runs``, the
+    kernel's: 4 cyclically consecutive even positions all bright, or all
+    dark (any 9 consecutive positions hold such a run), written as the
+    kernel writes it: fl(v - c) is monotone in v, so "all of a window
+    bright" is fl(min(window) - c) > weak."""
+    v = [torch.roll(pyr, (-dy, -dx), dims=(-2, -1)) for dy, dx in torb._FAST_RING.tolist()]
+    if kind == "compass":
+        d = [v[p] - pyr for p in (0, 4, 8, 12)]
+        n_bright = sum((x > weak_th).int() for x in d)
+        n_dark = sum((x < -weak_th).int() for x in d)
+        return (n_bright >= 2) | (n_dark >= 2)
+    e = v[0::2]
+    lo = [torch.minimum(e[q], e[(q + 1) % 8]) for q in range(8)]
+    hi = [torch.maximum(e[q], e[(q + 1) % 8]) for q in range(8)]
+    best_lo = torch.stack([torch.minimum(lo[q], lo[(q + 2) % 8]) for q in range(8)]).amax(0)
+    best_hi = torch.stack([torch.maximum(hi[q], hi[(q + 2) % 8]) for q in range(8)]).amin(0)
+    return (best_lo - pyr > weak_th) | (best_hi - pyr < -weak_th)
+
+
+def _live_mask(dims, shape):
+    live = torch.zeros(shape, dtype=torch.bool)
+    for lvl, (h, w) in enumerate(dims):
+        live[lvl, :h, :w] = True
+    return live
+
+
+@pytest.mark.parametrize("kind", ["compass", "even_runs"])
+@pytest.mark.parametrize("image", sorted(PRETEST_IMAGES))
+def test_pretest_rejects_only_pixels_that_score_zero(kind, image):
+    pyr_np = np.array(jorb.build_pyramid(jnp.asarray(PRETEST_IMAGES[image]()), 4, 1.2))
+    pyr = torch.from_numpy(pyr_np)
+    keep = _pretest_keep(pyr, kind)
+    score = torb.fast_response(pyr, 20.0, 7.0)
+    assert not score[~keep].any()
+    live = _live_mask(torb._level_dims(240, 320, 4, 1.2), pyr.shape)
+    assert (~keep[live]).float().mean() > (0.02 if kind == "compass" else 0.3)
+    # FAST on the kept pixels only, then NMS: the JAX reference, bit for bit
+    gated = torb.nms3(torch.where(keep, score, 0.0))
+    assert torch.equal(gated, torb.fast_nms_plain(pyr, 20.0, 7.0))
+    ref = np.asarray(jorb._nms3(jorb.fast_response(jnp.asarray(pyr_np), 20.0, 7.0)))
+    np.testing.assert_allclose(gated.numpy(), ref, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["compass", "even_runs"])
+def test_pretest_gated_score_matches_pallas_kernel_interior(kind):
+    """As test_fast_nms_plain_matches_pallas_kernel_interior, with the
+    rejected pixels' FAST scores forced to 0 before NMS."""
+    rng = np.random.RandomState(1)
+    H, W = 120, 256
+    img = rng.uniform(0, 255, (H, W)).astype(np.float32)
+    k = np.ones((3, 3), np.float32) / 9.0
+    p = np.pad(img, 1, mode="edge")
+    img = sum(k[i, j] * p[i : i + H, j : j + W] for i in range(3) for j in range(3))
+    pyr_np = np.array(jorb.build_pyramid(jnp.asarray(img), 3, 1.2))
+    pyr = torch.from_numpy(pyr_np)
+    keep = _pretest_keep(pyr, kind)
+    gated = torb.nms3(torch.where(keep, torb.fast_response(pyr, 20.0, 7.0), 0.0)).numpy()
+    ref = np.asarray(pallas_fast_nms(jnp.asarray(pyr_np), 20.0, 7.0, interpret=True))
+    sl = np.s_[:, _HALO : H - _HALO, _HALO : W - _HALO]
+    np.testing.assert_allclose(gated[sl], ref[sl], rtol=1e-5, atol=1e-3)
+    assert (ref[sl] > 0).sum() > 20
+
+
+def _no_live_window(live):
+    """(L, H, W) bool -> pixels whose wrapped 4-px window (9 x 9) holds no
+    live pixel."""
+    x = F.pad(live.float()[:, None], (4, 4, 4, 4), mode="circular")
+    return F.max_pool2d(x, 9, stride=1)[:, 0] == 0
+
+
+# kernel K1's tile and the rule by which it skips one (fast_nms.cu tile_live)
+K1_TILE, K1_HALO = (32, 32), 4
+
+
+def _k1_dead_tiles(dims, H, W):
+    th, tw = K1_TILE
+    for lvl, (h, w) in enumerate(dims):
+        for y0 in range(0, H, th):
+            for x0 in range(0, W, tw):
+                rows = (y0 - K1_HALO < h) or (y0 + th + K1_HALO > H)
+                cols = (x0 - K1_HALO < w) or (x0 + tw + K1_HALO > W)
+                if not (rows and cols):
+                    yield lvl, y0, x0
+
+
+@pytest.mark.parametrize("image", sorted(IMAGES))
+def test_padding_skip_is_exact(image):
+    """The pyramid is zero outside each level's live region; the plain output
+    (and the JAX reference's) is then exactly 0 on every pixel whose wrapped
+    4-px window has no live pixel, and the kernel's tile rule skips only
+    tiles made of such pixels."""
+    ex = torb.OrbExtractor(240, 320, "cpu", n_levels=4)
+    assert ex.live_dims.tolist() == [list(d) for d in ex.dims]
+    pyr = ex.pyramid(torch.from_numpy(IMAGES[image]()))
+    live = _live_mask(ex.dims, pyr.shape)
+    assert not pyr[~live].any()
+    dead = _no_live_window(live)
+    assert not torb.fast_nms_plain(pyr, 20.0, 7.0)[dead].any()
+    ref = np.asarray(jorb._nms3(jorb.fast_response(jnp.asarray(pyr.numpy()), 20.0, 7.0)))
+    assert not ref[dead.numpy()].any() and (ref > 0).sum() > 50
+    tiles = list(_k1_dead_tiles(ex.dims, 240, 320))
+    assert len(tiles) > 10
+    th, tw = K1_TILE
+    for lvl, y0, x0 in tiles:
+        assert dead[lvl, y0 : y0 + th, x0 : x0 + tw].all()
+
+
+def test_fast_nms_wrapper_on_cpu_takes_live_dims_and_runs_plain():
+    ex = torb.OrbExtractor(240, 320, "cpu", n_levels=4)
+    pyr = ex.pyramid(torch.from_numpy(IMAGES["wall"]()))
+    before = cuda_fast.fast_nms_score.launches
+    got = cuda_fast.fast_nms_score(pyr, 20.0, 7.0, ex.live_dims)
+    assert cuda_fast.fast_nms_score.launches == before
+    assert torch.equal(got, torb.fast_nms_plain(pyr, 20.0, 7.0))
+
+
 @pytest.mark.cuda
 def test_fast_nms_kernel_matches_plain_on_card(cuda_device):
     pyr = torch.from_numpy(np.array(jorb.build_pyramid(jnp.asarray(_blob_image()), 4, 1.2)))
@@ -172,3 +301,19 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_fast_nms_kernel_with_live_dims_matches_plain_on_card(cuda_device):
+    ex = torb.OrbExtractor(240, 320, cuda_device, n_levels=4)
+    pyr = ex.pyramid(torch.from_numpy(IMAGES["wall"]()).to(cuda_device))
+    got = cuda_fast.fast_nms_score(pyr, 20.0, 7.0, ex.live_dims)
+    assert torch.equal(got, torb.fast_nms_plain(pyr, 20.0, 7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 37, 45), (1, 5, 7), (2, 64, 68), (8, 480, 640)])
+def test_fast_nms_kernel_odd_shapes_match_plain_on_card(cuda_device, shape):
+    x = torch.from_numpy(np.random.RandomState(3).uniform(0, 255, shape).astype(np.float32))
+    x = x.to(cuda_device)
+    assert torch.equal(cuda_fast.fast_nms_score(x, 20.0, 7.0), torb.fast_nms_plain(x, 20.0, 7.0))

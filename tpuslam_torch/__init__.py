@@ -2,7 +2,9 @@
 
 The JAX package ``tpuslam`` is the reference; every module here mirrors the
 ``tpuslam`` module at the same path, and each Pallas kernel of the reference
-is replaced by a hand-written CUDA kernel under ``kernels/csrc``.
+is replaced by a hand-written CUDA kernel under ``kernels/csrc``.  The port
+imports nothing of ``tpuslam``: what it needs of a framework-free module
+there is copied (``core/config.py``), and the tests hold the copies equal.
 
 Float32 is pinned here, at the package entry: the pyramid is two matmuls
 that feed FAST's threshold comparisons, and TF32's ~3 decimal digits move

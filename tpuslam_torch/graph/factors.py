@@ -45,7 +45,7 @@ def stereo_residual(T_cw, X, uvr, fx, fy, cx, cy, bf):
 def stereo_jacobian(T_cw, X, fx, fy, bf):
     """d stereo_residual / d delta at delta = 0 for ``retract_pose``: (..., 3, 6).
 
-    Analytic form of the reference's ``jax.jacfwd``: with p = T X, a left
+    Analytic form of the reference's forward-mode Jacobian: with p = T X, a left
     perturbation moves p by ``omega x p + upsilon``, so dp/d[omega, upsilon]
     = [-[p]_x, I]; the depth clamp of ``stereo_residual`` has zero slope."""
     p = geo.se3_apply(T_cw, X)

@@ -36,30 +36,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built at first use")
 
 
+def source_library_path(src: Path) -> Path:
+    digest = hashlib.sha256(Path(src).read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(src).stem}-{digest}.so"
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return source_library_path(CSRC / f"{name}.cu")
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is missing, and load it.
-    The compiler's report (registers, shared memory, spills) is kept beside
-    the library as ``.log``."""
-    out = library_path(name)
+def load_source(src: Path) -> ctypes.CDLL:
+    """Compile the ``.cu`` file ``src`` if its library is missing, and load
+    it.  The compiler's report (registers, shared memory, spills) is kept
+    beside the library as ``.log``."""
+    out = source_library_path(src)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return ctypes.CDLL(str(out))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<name>.cu``."""
+    return load_source(CSRC / f"{name}.cu")
 
 
 def check(err: int, name: str) -> None:

@@ -25,14 +25,20 @@ def _library():
     fn = lib.fast_nms_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
-def fast_nms_score(pyramid, strict_th: float = 20.0, weak_th: float = 7.0):
-    """(L, H, W) float32 pyramid -> (L, H, W) NMS'd FAST score map."""
+def fast_nms_score(pyramid, strict_th: float = 20.0, weak_th: float = 7.0, live_dims=None):
+    """(L, H, W) float32 pyramid -> (L, H, W) NMS'd FAST score map.
+
+    ``live_dims``, optional, is an (L, 2) int32 tensor of each level's live
+    (h, w); the caller guarantees the pyramid is zero outside the top-left
+    h x w region of each level.  The kernel then skips the tiles whose
+    wrapped 4-px window holds no live pixel; the result is the same.
+    """
     if pyramid.device.type == "cpu":
         from .orb import fast_nms_plain
 
@@ -45,12 +51,21 @@ def fast_nms_score(pyramid, strict_th: float = 20.0, weak_th: float = 7.0):
             f"{tuple(pyramid.shape)} {pyramid.dtype}"
         )
     L, H, W = pyramid.shape
+    if live_dims is not None and not (
+        live_dims.device == pyramid.device and live_dims.dtype == torch.int32
+        and live_dims.shape == (L, 2) and live_dims.is_contiguous()
+    ):
+        raise ValueError(
+            f"fast_nms_score: live_dims must be a contiguous ({L}, 2) int32 tensor on "
+            f"{pyramid.device}, got {tuple(live_dims.shape)} {live_dims.dtype} on {live_dims.device}"
+        )
     out = torch.empty_like(pyramid)
     launch = _library()
     with torch.cuda.device(pyramid.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(
-            launch(pyramid.data_ptr(), out.data_ptr(), L, H, W, strict_th, weak_th, stream),
+            launch(pyramid.data_ptr(), out.data_ptr(), L, H, W, strict_th, weak_th,
+                   None if live_dims is None else live_dims.data_ptr(), stream),
             "fast_nms",
         )
     fast_nms_score.launches += 1

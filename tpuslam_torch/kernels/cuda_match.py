@@ -18,6 +18,7 @@ from . import build
 SOURCE = "tpuslam_torch/kernels/csrc/hamming_top2.cu"
 REPLACES = "tpuslam/kernels/pallas_match.py:89"
 BIG = 1e9  # cost of an invalid column
+MAX_ROWS = 16 * 65535  # the grid's y extent, 16 query rows a block
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,13 +51,15 @@ def hamming_top2(desc_a, desc_b, valid_b):
         desc_b.device == desc_a.device and valid_b.device == desc_a.device
         and desc_a.dtype == desc_b.dtype == torch.int32 and valid_b.dtype == torch.bool
         and desc_a.shape == (N, 8) and desc_b.shape == (M, 8) and valid_b.shape == (M,)
-        and N > 0 and M > 0
+        and 0 < N <= MAX_ROWS and M > 0
         and desc_a.is_contiguous() and desc_b.is_contiguous() and valid_b.is_contiguous()
+        and desc_a.data_ptr() % 16 == 0 and desc_b.data_ptr() % 16 == 0  # 16-byte loads
     )
     if not ok:
         raise ValueError(
             "hamming_top2: needs contiguous (N, 8) and (M, 8) int32 and (M,) bool on one "
-            f"device, N, M > 0; got {tuple(desc_a.shape)} {desc_a.dtype}, "
+            f"device, 0 < N <= {MAX_ROWS}, M > 0, 16-byte aligned; got "
+            f"{tuple(desc_a.shape)} {desc_a.dtype}, "
             f"{tuple(desc_b.shape)} {desc_b.dtype}, {tuple(valid_b.shape)} {valid_b.dtype}"
         )
     idx = torch.empty(N, dtype=torch.int32, device=desc_a.device)

@@ -14,7 +14,7 @@ as ``bf16(strip - mean) + mean`` and the blurred patch is rounded to bf16
 before BRIEF sampling.
 
 The constant tables are re-created here in numpy (the reference module
-imports jax) and are checked bit for bit against the reference's in the
+needs its framework) and are checked bit for bit against the reference's in the
 tests.  Descriptors are (N, 8) int32 tensors holding the uint32 bits.
 """
 
@@ -80,7 +80,7 @@ def level_scales(n_levels: int, scale_factor: float):
 @functools.lru_cache(maxsize=64)
 def _resize_matrix(src: int, dst: int):
     """(dst, src) antialiased linear-interpolation matrix, the semantics of
-    ``jax.image.resize(method='bilinear')`` when shrinking."""
+    the reference's bilinear ``image.resize`` when shrinking."""
     scale = src / dst
     support = max(scale, 1.0)
     M = np.zeros((dst, src), np.float64)
@@ -226,6 +226,9 @@ class OrbExtractor(torch.nn.Module):
         m = int(edge_margin)
         buf("inside", (row >= m) & (row < hs - m) & (col >= m) & (col < ws - m), torch.bool)
         buf("scales", level_scales(self.n_levels, self.scale_factor))
+        # each level's live (h, w): the pyramid is zero outside it, which
+        # lets kernel K1 skip the padding
+        buf("live_dims", np.array(self.dims), torch.int32)
         buf("ic_weights", _ic_angle_weights())
         buf("brief_pairs", _brief_pattern())
 
@@ -249,7 +252,7 @@ class OrbExtractor(torch.nn.Module):
         """Extract from a (H, W) grayscale image in [0, 255]."""
         H, W, L, cs = self.height, self.width, self.n_levels, self.cell_size
         pyr = self.pyramid(image.to(torch.float32))
-        score = cuda_fast.fast_nms_score(pyr, self.ini_th, self.min_th)
+        score = cuda_fast.fast_nms_score(pyr, self.ini_th, self.min_th, self.live_dims)
         score = torch.where(self.inside, score, 0.0)
 
         # --- per-cell top-k on each level ----------------------------------

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpuslam.core.config import Capacities
+from ..core.config import Capacities
 
 
 @dataclass

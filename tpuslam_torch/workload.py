@@ -20,9 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpuslam.core.config import Capacities, SlamConfig
-
 from .core.camera import Camera
+from .core.config import Capacities, SlamConfig
 from .frontend.tracking import Frame, frame_from_features, track_image_and_decide
 from .kernels.orb import OrbExtractor
 from .map import mapstate as ms
