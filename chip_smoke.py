@@ -69,19 +69,25 @@ def check(cond: bool, what: str) -> None:
 
 def check_k1(cases, cuda_fast, orb, timing):
     """Each case: (pyramid, live dims or None).  Equal arrays required."""
+    err = 0.0
     for name, (pyr, dims) in cases.items():
         got = cuda_fast.fast_nms_score(pyr, 20.0, 7.0, dims)
         ref = orb.fast_nms_plain(pyr, 20.0, 7.0)
-        err = float((got - ref).abs().max())
+        err = max(err, float((got - ref).abs().max()))
         n_got, n_ref = int((got > 0).sum()), int((ref > 0).sum())
         check(torch.equal(got, ref), f"K1 fast_nms == plain, {name} {tuple(pyr.shape)}, max |err| {err}")
         check(n_got == n_ref, f"K1 corner count {n_got} == plain {n_ref}, {name}")
     pyr, dims = cases["main_path"]
     check(int((orb.fast_nms_plain(pyr) > 0).sum()) > 0, "K1 main path has corners")
     ms = timing.device_ms(lambda: cuda_fast.fast_nms_score(pyr, 20.0, 7.0, dims))
-    bound_ms = 2 * pyr.numel() * 4 / HBM_BYTES_PER_MS  # read the pyramid, write the map
+    # given the live level sizes, the call needs only the live pixels in;
+    # it writes the whole map
+    live_px = int((dims[:, 0] * dims[:, 1]).sum())
+    bound_ms = (live_px + pyr.numel()) * 4 / HBM_BYTES_PER_MS
+    print(f"K1 bound: {live_px} live of {pyr.numel()} pixels read, {bound_ms * 1e3:.3f} us "
+          f"(whole array: {2 * pyr.numel() * 4 / HBM_BYTES_PER_MS * 1e3:.3f} us)", flush=True)
     return {
-        "max_abs_err": 0.0,
+        "max_abs_err": err,
         "ms": ms,
         # the plain versions allocate as they go, which waits for the device:
         # their time is the host-paced one

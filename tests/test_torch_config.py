@@ -21,7 +21,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 CLASSES = ["OrbConfig", "MatcherConfig", "TrackingConfig", "BAConfig", "SemanticConfig",
            "LoopConfig", "FeatureFlags", "Capacities", "SlamConfig"]
 PORT_SOURCES = sorted(str(p.relative_to(REPO)) for p in (REPO / "tpuslam_torch").rglob("*.py"))
-PORT_SOURCES.append("chip_smoke.py")
+PORT_SOURCES += ["chip_smoke.py", "kernel_ab.py"]
 
 
 @pytest.mark.parametrize("name", CLASSES)
@@ -44,8 +44,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
         "import tpuslam_torch, tpuslam_torch.workload",
         "for m in pkgutil.walk_packages(tpuslam_torch.__path__, 'tpuslam_torch.'):",
         "    importlib.import_module(m.name)",
-        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')",
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))",
+        "for name in ('chip_smoke', 'kernel_ab'):",
+        "    spec = importlib.util.spec_from_file_location(name, name + '.py')",
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))",
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpuslam'))",
         "print(bad)",
         "sys.exit(1 if bad else 0)",

@@ -275,6 +275,36 @@ def test_padding_skip_is_exact(image):
         assert dead[lvl, y0 : y0 + th, x0 : x0 + tw].all()
 
 
+def _strict_on_weak_side(img, strict_th, weak_th):
+    """fast_response with the kernel's rule: the strict threshold is tested
+    only on the side of the pixel's weak run (fast_nms.cu fast_score)."""
+    d = torch.stack([torch.roll(img, (-dy, -dx), dims=(-2, -1)) - img
+                     for dy, dx in torb._FAST_RING.tolist()])
+    bits = (1 << torch.arange(16)).view(16, *[1] * img.dim())
+    mask = lambda m: (m.long() * bits).sum(0)  # noqa: E731
+    bright = torb._has_run9(mask(d > weak_th))
+    weak = bright | torb._has_run9(mask(d < -weak_th))
+    strict = torb._has_run9(mask(torch.where(bright, d, -d) > strict_th))
+    return torch.where(weak, torb.fast_response(img, 1e30, weak_th) + torch.where(strict, 1e6, 0.0), 0.0)
+
+
+@pytest.mark.parametrize("strict_th,weak_th", [(20.0, 7.0), (7.0, 7.0), (5.0, 7.0), (-3.0, 0.0), (0.0, 0.0)])
+def test_strict_on_weak_side_is_exact_for_nonnegative_weak(strict_th, weak_th):
+    pyr = torch.from_numpy(np.array(jorb.build_pyramid(jnp.asarray(_blob_image()), 3, 1.2)))
+    want = torb.fast_response(pyr, strict_th, weak_th)
+    assert (want >= 1e6).any() and (want > 0).any()
+    assert torch.equal(_strict_on_weak_side(pyr, strict_th, weak_th), want)
+
+
+def test_strict_on_weak_side_needs_nonnegative_weak():
+    """With weak_th < 0 a pixel can hold both weak runs, and the rule the
+    kernel uses differs: the wrapper refuses such a weak_th on the card."""
+    img = torch.zeros(1, 9, 9)
+    img[0, 4, 4] = 0.7  # every ring difference is -0.7
+    got = _strict_on_weak_side(img, 0.5, -1.0)[0, 4, 4]
+    assert float(torb.fast_response(img, 0.5, -1.0)[0, 4, 4]) >= 1e6 > float(got)
+
+
 def test_fast_nms_wrapper_on_cpu_takes_live_dims_and_runs_plain():
     ex = torb.OrbExtractor(240, 320, "cpu", n_levels=4)
     pyr = ex.pyramid(torch.from_numpy(IMAGES["wall"]()))
@@ -317,3 +347,29 @@ def test_fast_nms_kernel_odd_shapes_match_plain_on_card(cuda_device, shape):
     x = torch.from_numpy(np.random.RandomState(3).uniform(0, 255, shape).astype(np.float32))
     x = x.to(cuda_device)
     assert torch.equal(cuda_fast.fast_nms_score(x, 20.0, 7.0), torb.fast_nms_plain(x, 20.0, 7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict_th,weak_th", [(5.0, 7.0), (-3.0, 0.0)])
+def test_fast_nms_kernel_strict_below_weak_matches_plain_on_card(cuda_device, strict_th, weak_th):
+    pyr = torch.from_numpy(np.array(jorb.build_pyramid(jnp.asarray(_blob_image()), 3, 1.2)))
+    pyr = pyr.to(cuda_device)
+    got = cuda_fast.fast_nms_score(pyr, strict_th, weak_th)
+    assert torch.equal(got, torb.fast_nms_plain(pyr, strict_th, weak_th))
+
+
+@pytest.mark.cuda
+def test_fast_nms_kernel_refuses_negative_weak_threshold(cuda_device):
+    pyr = torch.zeros(1, 64, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="weak_th"):
+        cuda_fast.fast_nms_score(pyr, 0.5, -1.0)
+
+
+@pytest.mark.cuda
+def test_fast_nms_kernel_refuses_a_misaligned_pyramid(cuda_device):
+    flat = torch.zeros(1 + 64 * 64, device=cuda_device)
+    pyr = flat[1:].view(1, 64, 64)  # contiguous, 4 bytes past a 16-byte boundary
+    assert pyr.is_contiguous() and pyr.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_fast.fast_nms_score(pyr, 20.0, 7.0)
+    torch.cuda.synchronize()  # the context is unharmed

@@ -13,8 +13,10 @@
 //   * NMS keeps the score iff it is >= the max of its 3x3 neighbourhood,
 //     with neighbours outside the image treated as -inf.
 //
-// What bounds it: one read and one write of the (L, H, W) float32 pyramid
-// (8 x 480 x 640 = 9.8 MB each way on the main path, 5.9 us at 3.35 TB/s).
+// What bounds it: one read of the pixels it needs and one write of the
+// (L, H, W) float32 map.  On the main path, with the live level sizes, that
+// is 3.8 MB of live pixels in and 9.8 MB out, 4.07 us at 3.35 TB/s (the
+// whole array, without them, 9.8 MB each way, 5.87 us).
 // On a textured image the arithmetic costs more than that: many live
 // pixels of the main path's texture are corners, and each needs the full
 // 16-position ring.  The design cuts instructions:
@@ -100,9 +102,12 @@ __device__ __forceinline__ bool even_pretest(const float (&e)[8], float c, float
   return (best_lo - c > weak_th) || (best_hi - c < -weak_th);
 }
 
-// Full pre-NMS score of the pixel staged at *s (row stride SW).  A pixel
-// cannot hold a bright and a dark run of 9 (9 + 9 > 16), so only the side
-// of its weak run is tested at the strict threshold.
+// Full pre-NMS score of the pixel staged at *s (row stride SW).  With
+// weak_th >= 0 (the wrapper's check) no ring pixel is both bright and dark,
+// so a pixel cannot hold a bright and a dark weak run (9 + 9 > 16), and
+// only the side of its weak run is tested at the strict threshold: if
+// strict_th >= weak_th, a strict run on the other side would also be a weak
+// run there; if strict_th < weak_th, the weak run is itself a strict run.
 __device__ __forceinline__ float fast_score(const float* s, float strict_th, float weak_th) {
   const float c = s[0];
   float d[16];

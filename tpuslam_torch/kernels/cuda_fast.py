@@ -38,6 +38,10 @@ def fast_nms_score(pyramid, strict_th: float = 20.0, weak_th: float = 7.0, live_
     (h, w); the caller guarantees the pyramid is zero outside the top-left
     h x w region of each level.  The kernel then skips the tiles whose
     wrapped 4-px window holds no live pixel; the result is the same.
+
+    The kernel needs ``weak_th >= 0``: then no pixel has both a bright and a
+    dark weak run, and it tests the strict threshold on its weak run's side
+    only.  Any ``strict_th`` is exact.
     """
     if pyramid.device.type == "cpu":
         from .orb import fast_nms_plain
@@ -45,11 +49,14 @@ def fast_nms_score(pyramid, strict_th: float = 20.0, weak_th: float = 7.0, live_
         return fast_nms_plain(pyramid, strict_th, weak_th)
     if pyramid.device.type != "cuda":
         raise ValueError(f"fast_nms_score: unsupported device {pyramid.device}")
-    if pyramid.dtype != torch.float32 or pyramid.dim() != 3 or not pyramid.is_contiguous():
+    if (pyramid.dtype != torch.float32 or pyramid.dim() != 3 or not pyramid.is_contiguous()
+            or pyramid.data_ptr() % 16 != 0):  # 16-byte loads of interior tiles
         raise ValueError(
-            "fast_nms_score: needs a contiguous (L, H, W) float32 tensor, got "
-            f"{tuple(pyramid.shape)} {pyramid.dtype}"
+            "fast_nms_score: needs a contiguous, 16-byte aligned (L, H, W) float32 tensor, got "
+            f"{tuple(pyramid.shape)} {pyramid.dtype} at offset {pyramid.storage_offset()}"
         )
+    if not weak_th >= 0:
+        raise ValueError(f"fast_nms_score: the kernel needs weak_th >= 0, got {weak_th}")
     L, H, W = pyramid.shape
     if live_dims is not None and not (
         live_dims.device == pyramid.device and live_dims.dtype == torch.int32
