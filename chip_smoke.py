@@ -12,13 +12,17 @@ In order, it
   3. holds kernel K1 (FAST + NMS) against its plain PyTorch version: frame
      0's (8, 480, 640) pyramid with and without the live level sizes, the
      4-level 240x320 pyramid of the small workload with them, and a random
-     (3, 37, 45) array.  The arrays must be equal (max |err| 0) with the
-     same number of corners;
+     (3, 37, 45) array; after phases 6 and 7, the first frame's pyramid of
+     each replay with its Tracker's live level sizes ((8, 240, 320) and
+     (8, 480, 640)).  The arrays must be equal (max |err| 0) with the same
+     number of corners;
   4. holds kernel K2 (Hamming top-2) against its plain version on frame 0's
      and frame 1's descriptors against keyframe 0's (1024 x 1024), random
      4096 x 4096 and 1000 x 777 with ~20% invalid columns, M = 1, all
-     columns invalid, and all columns tied (every B row the same): idx, d1
-     and d2 equal;
+     columns invalid, and all columns tied (every B row the same); after
+     phases 6 and 7, each replay's last frame against its reference
+     keyframe's bound keypoints (512 x 512 and 1024 x 1024): idx, d1 and d2
+     equal;
   5. runs the 64-frame tracking slice (``tpuslam_torch.workload``) at full
      width: 480x640 frames, 1024 features, a map of 512 keyframes and 32768
      points, 4096 local points.  Gates: no host sync in a pass, median final
@@ -26,10 +30,33 @@ In order, it
      which exact kernels must not move), every frame finite, each kernel
      launched exactly once per frame; and a 4-frame 240x320 run on the card
      must agree with the same run on the CPU (plain versions);
-  6. prints the slice's frames/s and each kernel's device time (launches
-     queued behind a spin, ``kernels/timing.py``) beside its bound and its
-     plain version's host-paced time, then one JSON line of kernels, the
-     card line, and the result.
+  6. runs the port's ``Tracker`` (``tpuslam_torch.apps.golden``) over the
+     first 48 frames of the golden sequence at 320x240 (fx = fy = 260, 512
+     features, the capacities of ``tests/test_long_replay.py``, loops off)
+     on the card and on the CPU: the card's render must equal the CPU's on
+     every pixel, both must initialize on the same frame and track the same
+     frames, and up to the first keyframe decision that differs (printed
+     with the scalars that decided it on each side) every camera centre
+     must agree within ``SMALL_CENTRE_TOL`` after Sim3 alignment and every
+     rotation within ``SMALL_ANGLE_TOL``, and the initialization
+     keyframe's rotation within ``SMALL_INIT_ANGLE_TOL``
+     (``replay_agreement``);
+  7. renders the first 200 frames of the golden sequence at full width on
+     the card, requires them equal to the CPU's render on every pixel, and
+     replays them (640x480, 1024 features, default capacities, loops off)
+     through ``run_loop`` and ``Tracker`` and prints a ``golden`` line: frames
+     tracked, keyframes, live points, raw / corrected / keyframe ATE,
+     frames/s, the per-keyframe stage ms and the host waits per hot-path,
+     keyframe and initialization frame with their sources.  Gates: the
+     first tracked frame below 40, tracked >= 0.9 x the frames after
+     initialization, raw ATE <= 1.5 x the JAX package's + 0.01 m, keyframes
+     created within 0.7-1.3 x the JAX package's (``JAX_GOLDEN_200``);
+  8. prints each phase's seconds, the slice's frames/s and each kernel's
+     device time (launches queued behind a spin, ``kernels/timing.py``)
+     beside its bound and its plain version's host-paced time, then one
+     JSON line of kernels (launches summed over the three paths that run
+     on the card: the slice, the card's small replay and the golden
+     replay), the card line, and the result.
 
 It imports nothing of JAX.  Any failed phase raises, and the script exits
 non-zero without printing the result line.
@@ -61,14 +88,39 @@ def card_line() -> str:
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 INT8_OPS_PER_MS = 1979e12 / 1e3
 
+# The JAX package's own CPU run of the golden replay, first 200 frames, the
+# configuration of phase 7 (PERF.md section 6, "the JAX package's CPU
+# reference"; made by jax_golden_reference.py --frames 200)
+JAX_GOLDEN_200 = {
+    "first_tracked": 4, "tracked": 196, "keyframes_created": 40, "keyframes_live": 12,
+    "points": 1139, "ate_raw_m": 0.013183368499423994, "ate_m": 0.02813167803444424,
+    "kf_ate_m": 0.018481896093696035,
+}
+GOLDEN_FRAMES = 200
+SMALL_FRAMES = 48
+# card vs CPU, 48 frames, up to the first keyframe decision that differs
+# (PERF.md section 6, "card vs CPU limits"): camera centres after Sim3
+# alignment, in the CPU run's map units, and rotation angles in radians, at
+# three times the largest reading of the sound runs; and the rotation of
+# the initialization keyframe, whose pose rests on one BA of the two-view
+# map, so that float order moves it 100x less than the later frames: eight
+# times the sound runs' largest reading, a sixth of a halved BA step's.
+# Local BA leaves the mono scale free and the order of its float sums
+# moves the solution along it, so raw pose matrices are not compared.
+SMALL_CENTRE_TOL = 2.1e-2
+SMALL_ANGLE_TOL = 3.1e-2
+SMALL_INIT_ANGLE_TOL = 5e-4
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED {what}")
     print(f"ok: {what}", flush=True)
 
 
-def check_k1(cases, cuda_fast, orb, timing):
-    """Each case: (pyramid, live dims or None).  Equal arrays required."""
+def hold_k1(cases, cuda_fast, orb) -> float:
+    """Each case: (pyramid, live dims or None).  Equal arrays and corner
+    counts required; returns the largest |err| (0)."""
     err = 0.0
     for name, (pyr, dims) in cases.items():
         got = cuda_fast.fast_nms_score(pyr, 20.0, 7.0, dims)
@@ -77,7 +129,10 @@ def check_k1(cases, cuda_fast, orb, timing):
         n_got, n_ref = int((got > 0).sum()), int((ref > 0).sum())
         check(torch.equal(got, ref), f"K1 fast_nms == plain, {name} {tuple(pyr.shape)}, max |err| {err}")
         check(n_got == n_ref, f"K1 corner count {n_got} == plain {n_ref}, {name}")
-    pyr, dims = cases["main_path"]
+    return err
+
+
+def time_k1(pyr, dims, cuda_fast, orb, timing):
     check(int((orb.fast_nms_plain(pyr) > 0).sum()) > 0, "K1 main path has corners")
     ms = timing.device_ms(lambda: cuda_fast.fast_nms_score(pyr, 20.0, 7.0, dims))
     # given the live level sizes, the call needs only the live pixels in;
@@ -87,7 +142,6 @@ def check_k1(cases, cuda_fast, orb, timing):
     print(f"K1 bound: {live_px} live of {pyr.numel()} pixels read, {bound_ms * 1e3:.3f} us "
           f"(whole array: {2 * pyr.numel() * 4 / HBM_BYTES_PER_MS * 1e3:.3f} us)", flush=True)
     return {
-        "max_abs_err": err,
         "ms": ms,
         # the plain versions allocate as they go, which waits for the device:
         # their time is the host-paced one
@@ -98,7 +152,8 @@ def check_k1(cases, cuda_fast, orb, timing):
     }
 
 
-def check_k2(cases, cuda_match, timing):
+def hold_k2(cases, cuda_match) -> float:
+    """Each case: (A, B, B's mask).  idx, d1 and d2 equal required."""
     err = 0.0
     for name, (a, b, valid) in cases.items():
         idx, d1, d2 = cuda_match.hamming_top2(a, b, valid)
@@ -106,13 +161,15 @@ def check_k2(cases, cuda_match, timing):
         err = max(err, float((d1 - rd1).abs().max()), float((d2 - rd2).abs().max()))
         same = torch.equal(idx, ridx) and torch.equal(d1, rd1) and torch.equal(d2, rd2)
         check(same, f"K2 hamming_top2 == plain, {name} {tuple(a.shape)} x {tuple(b.shape)}")
-    a, b, valid = cases["frame0_vs_kf0"]
+    return err
+
+
+def time_k2(a, b, valid, cuda_match, timing):
     n, m = a.shape[0], b.shape[0]
     ops_ms = 2 * n * m * 256 / INT8_OPS_PER_MS  # the +-1 int8 product
     bytes_ms = (n * 32 + m * 33 + n * 12) / HBM_BYTES_PER_MS
     ms = timing.device_ms(lambda: cuda_match.hamming_top2(a, b, valid))
     return {
-        "max_abs_err": err,
         "ms": ms,
         "plain_ms": timing.host_paced_ms(lambda: cuda_match.hamming_top2_plain(a, b, valid), reps=20, warmup=2),
         "bound_ms": max(ops_ms, bytes_ms),
@@ -121,6 +178,128 @@ def check_k2(cases, cuda_match, timing):
         "share_of_bound": max(ops_ms, bytes_ms) / ms, "library_ms": None,
         "host_paced_ms": timing.host_paced_ms(lambda: cuda_match.hamming_top2(a, b, valid)),
     }
+
+
+def tracker_kernel_cases(tracker, frame0):
+    """K1 and K2 at the shapes a Tracker's own path gives them: the pyramid
+    of ``frame0`` (uint8, host) with the tracker's live level sizes, and its
+    last frame's descriptors against its reference keyframe's bound ones."""
+    ex, m, ref = tracker.extractor, tracker.map, tracker.ref_kf
+    pyr = ex.pyramid(frame0.to(tracker.device).to(torch.float32))
+    has_pt = (m.kf_pt[ref] >= 0) & m.kf_kp_valid[ref]
+    return (pyr, ex.live_dims), (tracker.last_frame.desc, m.kf_desc[ref], has_pt)
+
+
+def pose_agreement(Ts_a, Ts_b):
+    """Distance between two runs' world->camera poses, frame by frame: the
+    camera-centre distance after the Sim3 alignment of a's centres onto
+    b's (b's map units), and the angle in radians between a's and b's
+    camera rotations as they stand.  Keyframe 0 is the BA gauge at the
+    identity in both runs, so rotations need no alignment, and aligning
+    them by the centres' Sim3 would add that fit's error: over a short
+    arc the centres leave the rotation about the path poorly determined."""
+    from tpuslam_torch.io.trajectory import umeyama_alignment
+
+    c_a = np.stack([-T[:3, :3].T @ T[:3, 3] for T in Ts_a]).astype(np.float64)
+    c_b = np.stack([-T[:3, :3].T @ T[:3, 3] for T in Ts_b]).astype(np.float64)
+    s, R, t = umeyama_alignment(c_a, c_b)
+    centre = np.linalg.norm((s * (R @ c_a.T)).T + t - c_b, axis=1)
+    M = np.stack([Tb[:3, :3] @ Ta[:3, :3].T for Ta, Tb in zip(Ts_a, Ts_b)]).astype(np.float64)
+    # atan2 of the axial and the trace parts: exact at small angles, where
+    # arccos of the trace loses the float32 rounding of the matrices
+    axial = np.stack([M[:, 2, 1] - M[:, 1, 2], M[:, 0, 2] - M[:, 2, 0], M[:, 1, 0] - M[:, 0, 1]], axis=1)
+    angle = np.arctan2(np.linalg.norm(axial, axis=1) / 2.0, (np.trace(M, axis1=1, axis2=2) - 1.0) / 2.0)
+    return centre, angle
+
+
+def card_vs_cpu_replay(golden, dev):
+    """Phase 6: the small golden replay on the card and on the CPU.  The
+    card's render must equal the CPU's on every pixel; both trackers get
+    the CPU's frames."""
+    cspec, _ = golden.golden_setup(small=True)
+    fg, _ = golden.render_golden(SMALL_FRAMES, cspec, dev)
+    frames, gt = golden.render_golden(SMALL_FRAMES, cspec, "cpu")
+    n_px = int((fg != frames).sum())
+    check(n_px == 0, f"small replay frames: the card's and the CPU's renders differ on {n_px} of "
+          f"{frames.numel()} pixels")
+    rep_g, tr_g = golden.run_golden(SMALL_FRAMES, dev, small=True, rendered=(frames, gt))
+    rep_c, tr_c = golden.run_golden(SMALL_FRAMES, "cpu", small=True, rendered=(frames, gt))
+    print(f"small replay keyframes: card {rep_g['kf_frame_ids']}, CPU {rep_c['kf_frame_ids']}", flush=True)
+    dec_g = {f: (d, made) for f, d, made in tr_g.kf_decisions}
+    dec_c = {f: (d, made) for f, d, made in tr_c.kf_decisions}
+    split = min([f for f in dec_g if f in dec_c and dec_g[f][1] != dec_c[f][1]], default=None)
+    if split is not None:
+        print(f"small replay: first differing keyframe decision at frame {split}: "
+              f"card {dec_g[split]}, CPU {dec_c[split]}", flush=True)
+    check(rep_g["first_tracked"] == rep_c["first_tracked"],
+          f"small replay: both initialize on frame {rep_g['first_tracked']} (CPU {rep_c['first_tracked']})")
+    fids_g = [f for f, _ in tr_g.trajectory]
+    check(fids_g == [f for f, _ in tr_c.trajectory], f"small replay: both track the same {len(fids_g)} frames")
+    limit = split if split is not None else SMALL_FRAMES
+    agree = replay_agreement(tr_g.trajectory, tr_c.trajectory, limit)
+    print("small replay: by frame, centre distance after Sim3 alignment / rotation angle (rad) " + json.dumps(
+        {f: f"{c:.1e}/{r:.1e}" for f, c, r in agree["by_frame"]}), flush=True)
+    print(f"small replay: raw pose-matrix max |diff| {agree['raw_max']:.3e}; raw ATE card "
+          f"{rep_g['ate_rmse_raw_m']:.5f} m, CPU {rep_c['ate_rmse_raw_m']:.5f} m", flush=True)
+    check(agree["centre_max"] <= SMALL_CENTRE_TOL,
+          f"small replay: camera centres up to frame {limit} agree after Sim3 alignment, max "
+          f"{agree['centre_max']:.3e} <= {SMALL_CENTRE_TOL}")
+    check(agree["angle_max"] <= SMALL_ANGLE_TOL,
+          f"small replay: rotations up to frame {limit} agree, max {agree['angle_max']:.3e} rad "
+          f"<= {SMALL_ANGLE_TOL}")
+    check(agree["init_angle"] <= SMALL_INIT_ANGLE_TOL,
+          f"small replay: the initialization keyframe's rotations (frame {agree['init_frame']}) agree, "
+          f"{agree['init_angle']:.3e} rad <= {SMALL_INIT_ANGLE_TOL}")
+    return {**agree, "split_frame": split, "card": rep_g, "cpu": rep_c, "tracker": tr_g, "cpu_tracker": tr_c,
+            "frames": frames}
+
+
+def replay_agreement(traj_a, traj_b, limit):
+    """:func:`pose_agreement` of two replays that tracked the same frames,
+    over the frames up to ``limit``: the largest centre distance and angle,
+    the angle at the first tracked frame (the initialization keyframe,
+    whose pose rests on the two-view initialization and one BA alone), and
+    the largest raw pose-matrix difference."""
+    pairs = [(f, a, b) for (f, a), (_, b) in zip(traj_a, traj_b) if f <= limit]
+    centre, angle = pose_agreement([a for _, a, _ in pairs], [b for _, _, b in pairs])
+    fids = [f for f, _, _ in pairs]
+    return {"centre_max": float(centre.max()), "angle_max": float(angle.max()),
+            "init_angle": float(angle[0]), "init_frame": fids[0],
+            "raw_max": max(float(np.abs(a - b).max()) for _, a, b in pairs),
+            "by_frame": list(zip(fids, centre.tolist(), angle.tolist()))}
+
+
+def golden_replay(golden, dev):
+    """Phase 7: the first 200 golden frames at full width, rendered on the
+    card and held to the CPU's render on every pixel; returns the report
+    line, the tracker and the frames."""
+    cspec, _ = golden.golden_setup()
+    frames, gt = golden.render_golden(GOLDEN_FRAMES, cspec, dev)
+    n_px = int((frames != golden.render_golden(GOLDEN_FRAMES, cspec, "cpu")[0]).sum())
+    check(n_px == 0, f"golden frames: the card's and the CPU's renders differ on {n_px} of {frames.numel()} pixels")
+    rep, tr = golden.run_golden(GOLDEN_FRAMES, dev, count_waits=True, rendered=(frames, gt))
+    keys = ("frames", "tracked", "first_tracked", "keyframes_created", "keyframes_live", "points",
+            "ate_rmse_raw_m", "ate_rmse_m", "kf_ate_rmse_m", "frames_per_s", "median_frame_ms",
+            "kf_stage_ms", "kf_stage_device_ms", "kf_frame_ids")
+    line = {k: rep.get(k) for k in keys}
+    for kind in ("hot", "keyframe", "init"):
+        waits = [w for w in tr.frame_waits if w[1] == kind]
+        sources = sum((w[3] for w in waits), Counter())
+        line[f"{kind}_frames"] = len(waits)
+        line[f"host_waits_per_{kind}_frame"] = float(np.mean([w[2] for w in waits])) if waits else None
+        line[f"host_wait_sources_{kind}"] = dict(sources.most_common(8))
+    print("golden " + json.dumps(line), flush=True)
+    ref = JAX_GOLDEN_200
+    first = rep["first_tracked"]
+    check(first is not None and first < 40, f"golden: first tracked frame {first} < 40")
+    check(rep["tracked"] >= 0.9 * (GOLDEN_FRAMES - first),
+          f"golden: tracked {rep['tracked']} >= 0.9 x {GOLDEN_FRAMES - first} frames after initialization")
+    lim = 1.5 * ref["ate_raw_m"] + 0.01
+    check(rep["ate_rmse_raw_m"] <= lim, f"golden: raw ATE {rep['ate_rmse_raw_m']:.4f} m <= {lim:.4f} m "
+          f"(JAX package {ref['ate_raw_m']:.4f} m)")
+    n, n_ref = rep["keyframes_created"], ref["keyframes_created"]
+    check(0.7 * n_ref <= n <= 1.3 * n_ref, f"golden: {n} keyframes created, JAX package {n_ref}")
+    return line, tr, frames
 
 
 def random_descriptors(n, seed, device):
@@ -135,12 +314,18 @@ def main() -> int:
         return 2
     import tpuslam_torch  # noqa: F401  (pins float32 matmuls)
     from tpuslam_torch import workload
+    from tpuslam_torch.apps import golden
     from tpuslam_torch.kernels import build, cuda_fast, cuda_match, orb, timing
 
     card = card_line()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    phase_s = {}
+    t_phase = time.perf_counter()
 
     # --- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -155,6 +340,8 @@ def main() -> int:
                     print(f"{name}: {line.strip()}")
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.3f} s for both kernels", flush=True)
+    phase_s["build"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # --- 3, 4. kernels against their plain versions ----------------------------
     wl = workload.build_workload(dev)
@@ -162,20 +349,21 @@ def main() -> int:
     torch.cuda.synchronize()
     pyr0 = wl.extractor.pyramid(wl.frames[0])
     odd = torch.from_numpy(np.random.RandomState(3).uniform(0, 255, (3, 37, 45)).astype(np.float32)).to(dev)
-    k1 = check_k1(
+    k1_err = hold_k1(
         {
             "main_path": (pyr0, wl.extractor.live_dims),
             "main_path_whole_array": (pyr0, None),
             "small_4_level": (small.extractor.pyramid(small.frames[0]), small.extractor.live_dims),
             "odd_3x37x45": (odd, None),
         },
-        cuda_fast, orb, timing,
+        cuda_fast, orb,
     )
+    k1 = time_k1(pyr0, wl.extractor.live_dims, cuda_fast, orb, timing)
     f1 = wl.extractor(wl.frames[1])
     kf_valid = (wl.kf0_pt >= 0) & wl.kf0.valid
     rand_valid = torch.from_numpy(np.random.RandomState(2).rand(4096) > 0.2).to(dev)
     b777 = random_descriptors(777, 5, dev)
-    k2 = check_k2(
+    k2_err = hold_k2(
         {
             "frame0_vs_kf0": (wl.kf0.desc, wl.map.kf_desc[0], kf_valid),
             "frame1_vs_kf0": (f1.desc, wl.map.kf_desc[0], kf_valid),
@@ -186,8 +374,12 @@ def main() -> int:
             "all_ties": (random_descriptors(1000, 4, dev), b777[:1].repeat(777, 1).contiguous(),
                          rand_valid[:777].contiguous()),
         },
-        cuda_match, timing,
+        cuda_match,
     )
+    k2 = time_k2(wl.kf0.desc, wl.map.kf_desc[0], kf_valid, cuda_match, timing)
+
+    phase_s["kernel_checks"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # --- 5. the slice ----------------------------------------------------------
     # a warm-up pass, then a pass that counts the host syncs of the frame path
@@ -203,14 +395,21 @@ def main() -> int:
     host_syncs = sum(syncs.values())
     print(f"host syncs in one 64-frame pass: {host_syncs} {dict(syncs.most_common(8))}", flush=True)
 
-    cuda_fast.fast_nms_score.launches = 0
-    cuda_match.hamming_top2.launches = 0
+    wrappers = {"fast_nms": cuda_fast.fast_nms_score, "hamming_top2": cuda_match.hamming_top2}
+
+    def reset_launches():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_launches():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    reset_launches()
     t0 = time.perf_counter()
     traj, scalars = workload.run_slice(wl)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"fast_nms": cuda_fast.fast_nms_score.launches,
-                "hamming_top2": cuda_match.hamming_top2.launches}
+    launches = read_launches()
     n_frames = wl.frames.shape[0]
     fps = n_frames / dt
 
@@ -234,19 +433,55 @@ def main() -> int:
     dT = float((tg.cpu() - tc).abs().max())
     nf_g, nf_c = sg[:, 3].cpu().double(), sc[:, 3].double()
     check(dT < 1e-3, f"small slice: card vs CPU pose max |diff| {dT:.2e} < 1e-3")
-    check(bool(((nf_g - nf_c).abs() <= 0.02 * nf_c).all()), f"small slice n_final card {sg[:, 3].tolist()} vs CPU {sc[:, 3].tolist()}")
+    check(bool(((nf_g - nf_c).abs() <= 0.02 * nf_c).all()),
+          f"small slice n_final card {sg[:, 3].tolist()} vs CPU {sc[:, 3].tolist()}")
+    phase_s["slice"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
-    # --- 6. report --------------------------------------------------------------
+    # --- 6. the Tracker, card against CPU ------------------------------------------
+    reset_launches()
+    small = card_vs_cpu_replay(golden, dev)
+    launches_small = read_launches()
+    for name, n in launches_small.items():
+        check(n > 0, f"{name} launched {n} times by the card's Tracker in the small replay")
+    # the kernels at the shapes the small replay gave them: an 8-level
+    # 240x320 pyramid and 512 x 512 descriptors
+    (pyr, dims), k2_in = tracker_kernel_cases(small["tracker"], small["frames"][0])
+    k1_err = max(k1_err, hold_k1({"small_replay_frame0": (pyr, dims)}, cuda_fast, orb))
+    k2_err = max(k2_err, hold_k2({"small_replay_frame_vs_ref_kf": k2_in}, cuda_match))
+    phase_s["card_vs_cpu_replay"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # --- 7. golden replay at full width ----------------------------------------------
+    reset_launches()
+    gold, tr_gold, gold_frames = golden_replay(golden, dev)
+    launches_golden = read_launches()
+    print(f"launches: slice {launches}, small replay {launches_small}, golden replay {launches_golden}",
+          flush=True)
+    check(launches_golden["fast_nms"] == GOLDEN_FRAMES,
+          f"fast_nms launched {launches_golden['fast_nms']} times in {GOLDEN_FRAMES} golden frames")
+    check(launches_golden["hamming_top2"] >= gold["tracked"] - 1,
+          f"hamming_top2 launched {launches_golden['hamming_top2']} times, once per hot-path frame")
+    (pyr, dims), k2_in = tracker_kernel_cases(tr_gold, gold_frames[0])
+    k1_err = max(k1_err, hold_k1({"golden_frame0": (pyr, dims)}, cuda_fast, orb))
+    k2_err = max(k2_err, hold_k2({"golden_frame_vs_ref_kf": k2_in}, cuda_match))
+    phase_s["golden_replay"] = time.perf_counter() - t_phase
+    print("phase seconds " + json.dumps(phase_s), flush=True)
+
+    # --- 8. report --------------------------------------------------------------
     print(json.dumps({
         "slice_frames_per_s": fps, "slice_seconds": dt, "frames": n_frames,
         "median_n_final": float(np.median(n_final)), "final_x_m": x_last, "expected_x_m": x_expect,
         "build_s": build_s, "host_syncs_per_pass": host_syncs, "card": card,
+        "small_replay_centre_max": small["centre_max"], "small_replay_angle_max": small["angle_max"],
+        "small_replay_init_angle": small["init_angle"],
+        "small_replay_raw_pose_max_diff": small["raw_max"], "small_replay_split_frame": small["split_frame"],
+        "golden_frames_per_s": gold["frames_per_s"], "phase_s": phase_s,
     }))
     kernels = [
-        {"name": "fast_nms", "route": "cuda", "source": cuda_fast.SOURCE,
-         "replaces": cuda_fast.REPLACES, "launches": launches["fast_nms"], **k1},
-        {"name": "hamming_top2", "route": "cuda", "source": cuda_match.SOURCE,
-         "replaces": cuda_match.REPLACES, "launches": launches["hamming_top2"], **k2},
+        {"name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
+         "launches": launches[name] + launches_small[name] + launches_golden[name], "max_abs_err": err, **k}
+        for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,165 @@
+"""The app loop and its report (port of ``tpuslam/apps/common.py``:
+``run_loop``, ``_corrected_trajectory`` and the points-only part of
+``finish``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+import warnings
+from collections import Counter
+
+import numpy as np
+import torch
+
+from ..frontend.tracking import Tracker
+from ..io.trajectory import ate_rmse, save_tum
+from ..utils.profiler import Profiler
+
+
+def _stage(gray, device):
+    """Start a frame's upload: a numpy image goes through pinned memory with
+    ``non_blocking=True``, so the copy overlaps the previous frame's work."""
+    if isinstance(gray, torch.Tensor) and gray.device == device:
+        return gray
+    t = gray if isinstance(gray, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(gray))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False):
+    """Drive the tracker over ``(frame_id, gray)`` items.  The next frame's
+    upload is started before the current frame is processed.
+
+    Returns the per-frame wall times (s).  With ``count_waits`` on a CUDA
+    tracker, ``tracker.frame_waits`` gets one entry per frame: (frame id,
+    kind, host waits, their sources).  The kind is "keyframe" when the call
+    made a keyframe, "init" when the tracker was not tracking before it (its
+    keyframes included), else "hot".  The waits are what torch's sync debug mode reports (the
+    tracker's reads among them) plus the tracker's waits on CUDA events,
+    which that mode does not see."""
+    dev = tracker.device
+    frame_times = []
+    tracker.frame_waits = []
+    it = iter(items)
+    cur = next(it, None)
+    cur = None if cur is None else (cur[0], _stage(cur[1], dev))
+    while cur is not None:
+        nxt = next(it, None)
+        if nxt is not None:
+            nxt = (nxt[0], _stage(nxt[1], dev))
+        fid, gray = cur
+        t0 = time.perf_counter()
+        n_kf, events0 = len(tracker._kf_fids), tracker.waits.get("event", 0)
+        tracking = tracker.state == tracker.OK
+        counting = count_waits and dev.type == "cuda"
+        if counting:
+            torch.cuda.set_sync_debug_mode("warn")
+        ctx = warnings.catch_warnings(record=True) if counting else contextlib.nullcontext([])
+        with ctx as caught:
+            if counting:
+                warnings.simplefilter("always")
+            with prof.section("time single frame"):
+                tracker.process_image(gray, fid)
+        if counting:
+            torch.cuda.set_sync_debug_mode("default")
+            syncs = Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                            if "synchroniz" in str(w.message))
+            events = tracker.waits.get("event", 0) - events0
+            if events:
+                syncs["cuda event"] = events
+            kind = "init" if not tracking else "keyframe" if len(tracker._kf_fids) > n_kf else "hot"
+            tracker.frame_waits.append((fid, kind, sum(syncs.values()), syncs))
+        frame_times.append(time.perf_counter() - t0)
+        cur = nxt
+    return frame_times
+
+
+def corrected_trajectory(tracker: Tracker):
+    """Track-time poses re-anchored to the final keyframe poses, as the
+    reference's SaveTrajectoryTUM does (System.cc:383-436): each frame's
+    pose relative to its reference keyframe, chained through culled
+    references until a live keyframe is reached.  A frame whose chain breaks
+    keeps its track-time pose."""
+    traj = tracker.trajectory
+    if not traj:
+        return []
+    kf_valid = tracker.map.kf_valid.cpu().numpy()
+    kf_fid = tracker.map.kf_frame_id.cpu().numpy()
+    kf_pose = tracker.map.kf_pose.cpu().numpy().astype(np.float64)
+    live_slot_by_fid = {
+        int(kf_fid[s]): int(s) for s in np.flatnonzero(kf_valid) if np.isfinite(kf_pose[s]).all()
+    }
+    rel = tracker.traj_rel
+    out = []
+    for fid, A in traj:
+        fid = int(fid)
+        T_acc = np.eye(4)
+        cur = fid
+        resolved = None
+        for _ in range(2048):  # every step strictly decreases the frame id
+            if cur in live_slot_by_fid:
+                resolved = T_acc @ kf_pose[live_slot_by_fid[cur]]
+                break
+            r = rel.get(cur)
+            if r is None:
+                break
+            _, ref_fid, T_cr = r
+            if ref_fid >= cur:
+                break
+            T_acc = T_acc @ np.asarray(T_cr, np.float64)
+            cur = ref_fid
+        T = resolved if resolved is not None and np.isfinite(resolved).all() else np.asarray(A)
+        out.append((fid, T))
+    return out
+
+
+def finish(tracker: Tracker, frame_times, gt=None, out_dir: str = ""):
+    """The points-only report of the reference's ``finish``: counts, frame
+    times, per-keyframe stage ms, and with ``gt`` (world->camera poses by
+    frame id) the Sim3-aligned ATE of the corrected, the raw and the live
+    keyframe trajectories.  With ``out_dir``, also the TUM files."""
+    tracker.flush()
+    corrected = corrected_trajectory(tracker)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        save_tum(os.path.join(out_dir, "KeyFrameTrajectory.txt"), [f for f, _ in corrected],
+                 [p for _, p in corrected])
+        save_tum(os.path.join(out_dir, "TrajectoryRaw.txt"), [f for f, _ in tracker.trajectory],
+                 [p for _, p in tracker.trajectory])
+    ft = np.array(frame_times)
+    n_created = max(len(tracker._kf_fids), 1)
+    report = {
+        "frames": len(ft),
+        "tracked": len(tracker.trajectory),
+        "keyframes": tracker.n_kf,
+        "keyframes_live": int(tracker.map.kf_valid.sum()),
+        "keyframes_created": len(tracker._kf_fids),
+        "points": tracker.live_points(),
+        "loops": tracker.n_loops,
+        "median_frame_s": float(np.median(ft)) if len(ft) else None,
+        "mean_frame_s": float(ft.mean()) if len(ft) else None,
+        "kf_stage_ms": {k: v / n_created for k, v in sorted(tracker.stage_ms.items())},
+    }
+    if tracker.device.type == "cuda":
+        report["kf_stage_device_ms"] = {
+            k: v / n_created for k, v in sorted(tracker.stage_device_ms().items())
+        }
+    if gt is not None and corrected:
+        est = [(f, p) for f, p in corrected if f < len(gt)]
+        if est:
+            report["ate_rmse_m"] = ate_rmse([p for _, p in est], [gt[f] for f, _ in est])[0]
+        raw = [(f, p) for f, p in tracker.trajectory if f < len(gt)]
+        if raw:
+            report["ate_rmse_raw_m"] = ate_rmse([p for _, p in raw], [gt[f] for f, _ in raw])[0]
+        kf_valid = tracker.map.kf_valid.cpu().numpy()
+        kf_fid = tracker.map.kf_frame_id.cpu().numpy()
+        kf_pose = tracker.map.kf_pose.cpu().numpy()
+        sel = [(int(kf_fid[s]), kf_pose[s]) for s in np.flatnonzero(kf_valid)
+               if int(kf_fid[s]) < len(gt) and np.isfinite(kf_pose[s]).all()]
+        if len(sel) >= 3:
+            report["kf_ate_rmse_m"] = ate_rmse([p for _, p in sel], [gt[f] for f, _ in sel])[0]
+    return report

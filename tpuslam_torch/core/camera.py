@@ -93,3 +93,12 @@ def undistort_points(cam: Camera, uv, iters: int = 8):
             [(xy_d[..., 0] - dx) / radial, (xy_d[..., 1] - dy) / radial], dim=-1
         )
     return torch.stack([xy[..., 0] * cam.fx + cam.cx, xy[..., 1] * cam.fy + cam.cy], dim=-1)
+
+
+def camera_matrix(cam: Camera) -> torch.Tensor:
+    """(3, 3) intrinsics on ``cam.dist``'s device, filled in place from the
+    Python numbers, so no host buffer is copied (no wait on the device)."""
+    K = torch.zeros((3, 3), dtype=torch.float32, device=cam.dist.device)
+    for (i, j), v in zip(((0, 0), (0, 2), (1, 1), (1, 2), (2, 2)), (cam.fx, cam.cx, cam.fy, cam.cy, 1.0)):
+        K[i, j].fill_(v)
+    return K

@@ -1,5 +1,5 @@
-"""Per-frame tracking program (port of the device functions of
-``tpuslam/frontend/tracking.py``, tracking.py:40-425).
+"""Per-frame tracking program and the host ``Tracker`` (port of
+``tpuslam/frontend/tracking.py``).
 
 ``track_image_and_decide`` is the whole tracked-frame path: ORB extraction,
 the motion-model match, the reference-keyframe match, the local-map match,
@@ -9,20 +9,33 @@ branch, no boolean-mask indexing; every choice is a tensor select, so the
 host can enqueue the next frame from this frame's device outputs.
 
 ``ref_kf`` is a Python int: the host owns the reference keyframe.
+
+``Tracker`` is the host state machine every app drives: monocular
+initialization, the pipelined hot path, keyframe insertion and the local
+mapping step (point culling, triangulation, fusion, local BA, keyframe
+culling).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+import time
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from ..backend import mapping as bm
+from ..backend.local_ba import run_local_ba
 from ..core import geometry as geo
-from ..core.camera import Camera, undistort_points
+from ..core.camera import Camera, camera_matrix, undistort_points
+from ..core.config import SlamConfig
 from ..graph import lm
+from ..io.trajectory import se3_inv as se3_inv_np
 from ..kernels import match as km
 from ..kernels.orb import Features, OrbExtractor, topk_stable
 from ..map import mapstate as ms
+from .initializer import initialize_two_view, ransac_samples
 
 
 class Frame(NamedTuple):
@@ -324,3 +337,524 @@ def track_image_and_decide(
         n_local=n_local, n_local_kfs=n_local_kfs,
     )
     return step, frame
+
+
+def match_for_init(f1: Frame, f2: Frame):
+    """SearchForInitialization (ORBmatcher.cc:405): 100 px window, 0.9 ratio,
+    rotation consistency.  Gated, so on the dense path."""
+    gate = km.window_gate(f1.uv, f2.uv, 100.0)
+    idx, _, ok = km.match_descriptors(
+        f1.desc, f2.desc, f1.valid, f2.valid, gate_mask=gate, max_dist=50.0, ratio=0.9
+    )
+    return idx, km.rotation_consistency(f1.angle, f2.angle, idx, ok)
+
+
+# ---------------------------------------------------------------------------
+# Host orchestrator
+# ---------------------------------------------------------------------------
+
+
+class _HostCopy:
+    """Device tensors copied into pinned host buffers without waiting; the
+    first :meth:`get` waits on the CUDA event recorded after the copies."""
+
+    def __init__(self, tensors, waits: dict):
+        self._waits = waits
+        self._event = None
+        if tensors[0].device.type == "cuda":
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(tensors)
+
+    def get(self):
+        if self._event is not None:
+            self._event.synchronize()
+            self._waits["event"] = self._waits.get("event", 0) + 1
+            self._event = None
+        return [h.numpy() for h in self._host]
+
+
+class Tracker:
+    """Host-side SLAM pipeline (System + Tracking + LocalMapping facade) for
+    a monocular camera, points only.
+
+    Each frame runs tracking; a keyframe runs the mapping step inline.  The
+    hot path is pipelined: frame n's program is enqueued from frame n-1's
+    device outputs before frame n-1's scalars are read back, so the only
+    wait per tracked frame is on the previous frame's copy.  Entry points
+    run on ``device`` (``cuda:0`` unless the caller asks for the CPU).
+
+    Not ported yet: loop closing and relocalization against a BoW database,
+    planes and objects, stereo and RGB-D, localization mode, checkpoints."""
+
+    NOT_INITIALIZED = 0
+    OK = 1
+    LOST = 2
+
+    def __init__(self, cam: Camera, cfg: SlamConfig, device="cuda:0"):
+        fl = cfg.flags
+        if cfg.sensor != "mono":
+            raise NotImplementedError(f"sensor {cfg.sensor!r}: the port tracks mono only")
+        if fl.enable_loop_closing:
+            raise NotImplementedError("loop closing is not ported; pass FeatureFlags(enable_loop_closing=False)")
+        semantic = [f.name for f in dataclasses.fields(fl)
+                    if getattr(fl, f.name) and f.name not in ("enable_loop_closing", "distributed_ba")]
+        if semantic:
+            raise NotImplementedError(f"planes and objects are not ported: {semantic}")
+        self.device = torch.device(device)
+        if cam.dist.device != self.device:
+            cam = dataclasses.replace(cam, dist=cam.dist.to(self.device))
+        self.cam = cam
+        self.cfg = cfg
+        self.K = camera_matrix(cam)
+        o = cfg.orb
+        self.extractor = OrbExtractor(
+            cam.height, cam.width, self.device, n_features=o.n_features, n_levels=o.n_levels,
+            scale_factor=o.scale_factor, ini_th=o.ini_th_fast, min_th=o.min_th_fast,
+        )
+        self.map = ms.empty_map(cfg.caps, self.device)
+        self.state = self.NOT_INITIALIZED
+        self.n_kf = 0
+        self.n_pt = 0  # point-slot high-water mark (slots below it may be free)
+        self._free_slots = np.empty(0, np.int64)
+        self._alloc_pending = None  # (host copy of the consumed count, avail)
+        self._pt_valid_snap = None  # host copy of pt_valid for the freelist
+        self.dbg = {}
+        self.kf_decisions = []  # (frame id, the scalars NeedNewKeyFrame read, made)
+        self.stage_ms = {}  # cumulative host wall ms per keyframe stage
+        self._stage_events = []  # (name, start, end) CUDA events, resolved lazily
+        self._stage_device_ms = {}
+        self.waits = {}  # explicit host waits on the device, by kind
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.T_cur = np.eye(4, dtype=np.float32)
+        self.last_frame: Optional[Frame] = None
+        self.last_kp_pt = None
+        self.init_frame: Optional[Frame] = None
+        self.init_frame_id = -1
+        self.ref_kf = 0
+        self.frames_since_kf = 0
+        self._kf_fids: list = []  # frame ids of every keyframe created
+        self.trajectory: list = []  # (frame_id, Tcw)
+        self.traj_rel: dict = {}  # fid -> (ref slot, ref fid, T_frame @ inv(T_ref))
+        self._kf_slot_fid: dict = {}
+        self.n_inliers = 0
+        self.n_loops = 0
+        self._pending = None  # the in-flight frame of the hot path
+        self._dev_T = None
+        self._dev_vel = None
+        # set when a keyframe chain advanced self.map past the in-flight
+        # program's snapshot: that program's counter-updated map is dropped
+        self._map_fork = False
+
+    # -- device <-> host ------------------------------------------------------
+
+    def _upload(self, a):
+        """A small host array to the device, from pinned memory, without a wait."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    def _copy_to_host(self, tensors):
+        return _HostCopy(tensors, self.waits)
+
+    def _sync_read(self, t):
+        """A read the host must wait for (initialization, slot reuse)."""
+        if self.device.type == "cuda":
+            self.waits["read"] = self.waits.get("read", 0) + 1
+        return t.cpu().numpy()
+
+    def _lap_start(self):
+        return [self._mark()]
+
+    def _mark(self):
+        ev = None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        return time.perf_counter(), ev
+
+    def _lap(self, t, prefix, name):
+        """Close stage ``prefix_name``: host wall ms now, device ms (between
+        CUDA events) when :meth:`stage_device_ms` reads them."""
+        t.append(self._mark())
+        (t0, e0), (t1, e1) = t[-2], t[-1]
+        key = f"{prefix}_{name}"
+        self.dbg[f"{key}_ms"] = round((t1 - t0) * 1e3, 1)
+        self.stage_ms[key] = self.stage_ms.get(key, 0.0) + (t1 - t0) * 1e3
+        if e1 is not None:
+            self._stage_events.append((key, e0, e1))
+
+    def stage_device_ms(self) -> dict:
+        """Cumulative device ms per keyframe stage: the time between CUDA
+        events recorded at the stage boundaries (waits for the device)."""
+        if self._stage_events:
+            self._stage_events[-1][2].synchronize()
+            for name, a, b in self._stage_events:
+                self._stage_device_ms[name] = self._stage_device_ms.get(name, 0.0) + a.elapsed_time(b)
+            self._stage_events = []
+        return dict(self._stage_device_ms)
+
+    # -- public API -----------------------------------------------------------
+
+    def _check_feature_caps(self):
+        if self.cfg.orb.n_features != self.cfg.caps.max_keypoints:
+            raise ValueError(
+                f"cfg.orb.n_features ({self.cfg.orb.n_features}) must equal "
+                f"cfg.caps.max_keypoints ({self.cfg.caps.max_keypoints}): the "
+                "map's per-keyframe arrays are padded to max_keypoints"
+            )
+
+    def process_image(self, gray, frame_id: int):
+        """Track one grayscale image (uint8 or float, numpy or tensor).
+        Returns the pose of the frame resolved in this call: in the
+        pipelined state that is the previous frame's, else this frame's."""
+        self._check_feature_caps()
+        g = gray if isinstance(gray, torch.Tensor) else torch.from_numpy(np.asarray(gray))
+        g = g.to(self.device, non_blocking=True)
+        if self.state == self.OK:
+            cfg = self.cfg
+            tc = cfg.tracking
+            th_depth = cfg.depth_threshold * self.cam.bf / max(self.cam.fx, 1e-6)
+            out, frame = track_image_and_decide(
+                self.map, g, None,
+                self._dev_T if self._dev_T is not None else self._upload(self.T_cur),
+                self._dev_vel if self._dev_vel is not None else self._upload(self.velocity),
+                self.last_kp_pt, self.last_frame.angle, self.last_frame.octave,
+                self.ref_kf, self.cam, tc.search_radius_motion, tc.search_radius_localmap,
+                tc.min_track_motion, th_depth, self.extractor,
+                n_local=cfg.caps.local_ba_points, n_local_kfs=tc.max_local_keyframes,
+            )
+            fetch = self._copy_to_host((out.scalars, out.T, out.T_ref))
+            ref_at_dispatch = self.ref_kf  # out.T_ref is this slot's pose
+            prev_pose = self._finish_pending()
+            if self.state == self.OK:
+                self._pending = (frame_id, out, frame, ref_at_dispatch, fetch)
+                self._dev_T = out.T
+                self._dev_vel = out.velocity
+                self.last_kp_pt = out.kp_pt
+                self.last_frame = frame
+            return prev_pose
+        self.flush()
+        feats = self.extractor(g.to(torch.float32))
+        return self.process_frame(frame_from_features(feats, self.cam), frame_id)
+
+    def process_frame(self, frame: Frame, frame_id: int):
+        """Track one frame's features synchronously (no pipelining)."""
+        if self.state == self.NOT_INITIALIZED:
+            self._monocular_initialization(frame, frame_id)
+        elif self.state == self.LOST:
+            self._relocalize(frame, frame_id)
+        else:
+            self._track(frame, frame_id)
+        if self.state == self.OK:
+            self.trajectory.append((frame_id, np.array(self.T_cur)))
+        return np.array(self.T_cur) if self.state == self.OK else None
+
+    def flush(self):
+        """Resolve the in-flight frame, if any; call before reading state."""
+        return self._finish_pending()
+
+    # -- initialization -------------------------------------------------------
+
+    def _ransac_samples(self, valid, frame_id: int):
+        """The (200, 8) RANSAC samples of one attempt, drawn on the CPU from
+        a generator seeded by ``frame_id`` (a fixed seed would replay one
+        unlucky draw on every attempt)."""
+        return ransac_samples(valid, frame_id)
+
+    def _monocular_initialization(self, frame: Frame, frame_id: int):
+        cfg = self.cfg
+        n_valid = int(self._sync_read(frame.valid.sum()))
+        if self.init_frame is None or n_valid < cfg.tracking.min_init_matches:
+            if n_valid >= cfg.tracking.min_init_matches:
+                self.init_frame = frame
+                self.init_frame_id = frame_id
+            return
+        idx, ok = match_for_init(self.init_frame, frame)
+        if int(self._sync_read(ok.sum())) < cfg.tracking.min_init_matches:
+            self.init_frame = frame  # restart (Tracking.cc:755-773)
+            self.init_frame_id = frame_id
+            return
+        res = initialize_two_view(
+            self.init_frame.uv, frame.uv[idx], ok, self.K, self._ransac_samples(ok, frame_id)
+        )
+        if not bool(self._sync_read(res.ok)):
+            return
+        # scale so the median scene depth is 1 (Tracking.cc:861-906)
+        good = res.good
+        med = float(self._sync_read(ms.nanmedian(torch.where(good, res.points[:, 2], float("nan")))))
+        n_new = int(self._sync_read(good.sum()))
+        if not np.isfinite(med) or med <= 0 or n_new < 80:
+            return
+        scale = cfg.tracking.init_median_depth / med
+        pts = res.points * scale
+        T2 = res.T_21.clone()
+        T2[:3, 3] *= scale
+        dev = self.device
+        N = frame.uv.shape[0]
+        slots = torch.where(good, torch.cumsum(good.to(torch.int32), 0) - 1 + self.n_pt, 0).to(torch.int32)
+        self.map = ms.add_points(
+            self.map, slots, pts, frame.desc[idx], torch.zeros((N, 3), device=dev),
+            torch.zeros(N, device=dev), torch.full((N,), 1e9, device=dev),
+            torch.zeros(N, dtype=torch.int32, device=dev), good,
+            first_fid=torch.full((N,), frame_id, dtype=torch.int32, device=dev),
+        )
+        pt_of_kp1 = torch.where(good, slots, -1).to(torch.int32)
+        # frame-2 bindings through the match: two frame-1 keypoints matched to
+        # one frame-2 keypoint leave the higher one's point (tracking.py:769-773)
+        pt_of_kp2 = ms.scatter_last(
+            torch.full((N + 1,), -1, dtype=torch.int32, device=dev),
+            torch.where(good, idx, N), torch.where(good, slots, -1),
+        )[:N]
+        f1 = self.init_frame
+        self.map = ms.add_keyframe(
+            self.map, 0, torch.eye(4, device=dev), self.init_frame_id, f1.uv, f1.octave, f1.angle,
+            f1.desc, f1.valid, pt_of_kp1, f1.ur, f1.depth,
+        )
+        self.map = ms.add_keyframe(
+            self.map, 1, T2, frame_id, frame.uv, frame.octave, frame.angle, frame.desc, frame.valid,
+            pt_of_kp2, frame.ur, frame.depth,
+        )
+        self.n_kf = 2
+        self.n_pt += n_new
+        self._kf_fids += [self.init_frame_id, frame_id]
+        self._kf_slot_fid[0] = self.init_frame_id
+        self._kf_slot_fid[1] = frame_id
+        self.map = ms.update_point_stats(self.map)
+        self.map, _ = run_local_ba(self.map, 1, self.cam, self.cfg)
+        self.T_cur = self._sync_read(self.map.kf_pose[1])
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.last_frame = frame
+        self.last_kp_pt = pt_of_kp2
+        self.ref_kf = 1
+        self.frames_since_kf = 0
+        self.state = self.OK
+
+    # -- tracking -------------------------------------------------------------
+
+    def _finish_pending(self):
+        """Read back and commit the in-flight frame: the delayed half of the
+        pipelined hot path.  Returns the committed pose or None."""
+        if self._pending is None:
+            return None
+        frame_id, out, frame, ref_at_dispatch, fetch = self._pending
+        self._pending = None
+        scalars_np, T_np, T_ref_np = fetch.get()
+        return self._commit(frame_id, out, frame, ref_at_dispatch, scalars_np, T_np, T_ref_np,
+                            pipelined=True)
+
+    def _commit(self, frame_id, out, frame, ref_slot, scalars_np, T_np, T_ref_np, pipelined):
+        cfg = self.cfg
+        n_mm, n_rf, used_rf, n_final, n_ref2, n_ref3, n_valid_kf = (int(x) for x in scalars_np[:7])
+        self.dbg.update(n_mm=n_mm, n_rf=n_rf, used_rf=bool(used_rf))
+        ref_fid = self._kf_slot_fid.get(ref_slot, -1)
+        if ref_fid >= 0 and np.isfinite(T_ref_np).all():
+            self.traj_rel[frame_id] = (ref_slot, ref_fid, T_np @ se3_inv_np(T_ref_np))
+        lost = (used_rf and n_rf < cfg.tracking.min_track_ref) or (
+            n_final < cfg.tracking.min_track_localmap
+        )
+        if lost:
+            self.state = self.LOST
+            self._dev_T = self._dev_vel = None
+            self._map_fork = False
+            return None
+        self.n_inliers = n_final
+        if not self._map_fork:
+            self.map = out.m
+        self._map_fork = False
+        self.velocity = T_np @ se3_inv_np(self.T_cur)
+        self.T_cur = T_np
+        if not pipelined:
+            self.last_frame = frame
+            self.last_kp_pt = out.kp_pt
+        self.frames_since_kf += 1
+        since = self.frames_since_kf
+        make = self._need_new_keyframe(n_final, n_ref2, n_ref3, n_valid_kf)
+        self.kf_decisions.append((frame_id, dict(n_in=n_final, n_ref=self.dbg.get("n_ref"),
+                                                  n_valid_kf=n_valid_kf, since_kf=since), make))
+        if make:
+            self._create_keyframe(frame, frame_id, out.kp_pt, out.T)
+            self._map_fork = pipelined
+        if pipelined:
+            self.trajectory.append((int(frame_id), np.array(self.T_cur)))
+        return np.array(self.T_cur)
+
+    def _track(self, frame: Frame, frame_id: int):
+        """Synchronous tracking of one frame's features (process_frame)."""
+        cfg = self.cfg
+        tc = cfg.tracking
+        th_depth = cfg.depth_threshold * self.cam.bf / max(self.cam.fx, 1e-6)
+        out = track_and_decide(
+            self.map, frame, self._upload(self.T_cur), self._upload(self.velocity),
+            self.last_kp_pt, self.last_frame.angle, self.last_frame.octave, self.ref_kf, self.cam,
+            tc.search_radius_motion, tc.search_radius_localmap, tc.min_track_motion, th_depth,
+            n_local=cfg.caps.local_ba_points, n_local_kfs=tc.max_local_keyframes,
+        )
+        scalars_np, T_np, T_ref_np = self._copy_to_host((out.scalars, out.T, out.T_ref)).get()
+        self._commit(frame_id, out, frame, self.ref_kf, scalars_np, T_np, T_ref_np, pipelined=False)
+
+    def _relocalize(self, frame: Frame, frame_id: int):
+        """LOST: a map of at most 5 keyframes is reset and initialization
+        starts again (Tracking.cc:620-628).  Relocalization against a larger
+        map needs the place-recognition database, which is not ported."""
+        if self.n_kf <= 5:
+            self._reset()
+            self._monocular_initialization(frame, frame_id)
+
+    def _reset(self):
+        """System::Reset: a new map lives in a new frame, so the trajectory
+        records are cleared too."""
+        self.map = ms.empty_map(self.cfg.caps, self.device)
+        self.state = self.NOT_INITIALIZED
+        self.n_kf = 0
+        self.n_pt = 0
+        self._free_slots = np.empty(0, np.int64)
+        self._alloc_pending = None
+        self._pt_valid_snap = None
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.init_frame = None
+        self.ref_kf = 0
+        self._kf_fids = []
+        self.trajectory = []
+        self.traj_rel = {}
+        self._kf_slot_fid = {}
+        self._pending = None
+        self._dev_T = self._dev_vel = None
+        self._map_fork = False
+
+    # -- point-slot allocation ----------------------------------------------
+    #
+    # The host keeps a candidate list (culled slots first, then fresh) built
+    # from a pt_valid snapshot copied back without waiting at the end of each
+    # mapping step.  An allocation uploads a slice of the list; the device
+    # assigns slots by lane rank; the consumed count comes back the same way
+    # and is read before the next allocation.
+
+    def _resolve_pending_alloc(self):
+        if self._alloc_pending is not None:
+            fetch, avail_np = self._alloc_pending
+            n = int(fetch.get()[0])
+            if n > 0:
+                consumed = avail_np[:n]
+                self.n_pt = max(self.n_pt, int(consumed.max()) + 1)
+                self._free_slots = self._free_slots[
+                    ~np.isin(self._free_slots, consumed, assume_unique=True)
+                ]
+            self._alloc_pending = None
+        if self._pt_valid_snap is not None:
+            snap = self._pt_valid_snap.get()[0]
+            self._free_slots = np.flatnonzero(~snap[: self.n_pt])
+            self._pt_valid_snap = None
+
+    def _alloc_begin(self, n_lanes: int):
+        """``n_lanes`` candidate slots on the device (padded with the
+        out-of-range sentinel, whose lanes drop their writes) and their host
+        copy."""
+        self._resolve_pending_alloc()
+        cap = self.cfg.caps.max_points
+        avail = np.concatenate([self._free_slots, np.arange(self.n_pt, cap)])[:n_lanes]
+        avail_np = np.full(n_lanes, cap, np.int32)
+        avail_np[: len(avail)] = avail
+        return self._upload(avail_np), avail_np
+
+    def _alloc_end(self, n_dev, avail_np):
+        self._alloc_pending = (self._copy_to_host((n_dev,)), avail_np)
+
+    def _snapshot_free_slots(self):
+        self._pt_valid_snap = self._copy_to_host((self.map.pt_valid,))
+
+    def live_points(self) -> int:
+        """Number of valid map points (``n_pt`` is only the slot high-water
+        mark once culled slots are reused)."""
+        return int(self._sync_read(self.map.pt_valid.sum()))
+
+    # -- keyframes -------------------------------------------------------------
+
+    def _need_new_keyframe(self, n_in: int, n_ref2: int, n_ref3: int, n_valid_kf: int) -> bool:
+        """Tracking::NeedNewKeyFrame (Tracking.cc:1211-1295) for a mono
+        camera, from the scalars the tracking program computed.  Mapping
+        runs inline, so the decision is c2 (gated by the modelled
+        mapping-busy window) or the cadence cap c1a."""
+        cfg = self.cfg
+        if self.n_kf >= cfg.caps.max_keyframes - 1 and self.n_kf - n_valid_kf <= 0:
+            return False
+        min_obs = 2 if n_valid_kf <= 4 else 3
+        n_ref = n_ref2 if min_obs == 2 else n_ref3
+        th_ref = 0.9 if n_valid_kf >= 2 else 0.4
+        c1a = self.frames_since_kf >= cfg.tracking.max_frames_between_kf
+        c1b = self.frames_since_kf >= cfg.tracking.mapping_busy_frames
+        c2 = n_in < th_ref * n_ref and n_in > 15 and c1b
+        self.dbg.update(n_ref=n_ref, n_in=n_in, min_obs=min_obs, n_valid_kf=n_valid_kf, c1a=c1a, c2=c2)
+        return bool(c1a or c2)
+
+    def _alloc_kf_slot(self):
+        """Fresh slots first, then the stalest culled slot (never slot 0, the
+        BA gauge).  None when every slot holds a valid keyframe."""
+        if self.n_kf < self.cfg.caps.max_keyframes - 1:
+            slot = self.n_kf
+            self.n_kf += 1
+            return slot
+        valid = self._sync_read(self.map.kf_valid[: self.n_kf])
+        free = np.flatnonzero(~valid)
+        free = free[free > 0]
+        if len(free) == 0:
+            return None
+        fids = self._sync_read(self.map.kf_frame_id[: self.n_kf])
+        return int(free[np.argmin(fids[free])])
+
+    def _create_keyframe(self, frame: Frame, frame_id: int, kp_pt, T_dev=None):
+        t = self._lap_start()
+        slot = self._alloc_kf_slot()
+        if slot is None:
+            return
+        T = T_dev if T_dev is not None else self._upload(self.T_cur)
+        self.map = ms.add_keyframe(
+            self.map, slot, T, frame_id, frame.uv, frame.octave, frame.angle, frame.desc,
+            frame.valid, kp_pt, frame.ur, frame.depth,
+        )
+        self.ref_kf = slot
+        self.frames_since_kf = 0
+        self._kf_fids.append(frame_id)
+        self._kf_slot_fid[slot] = frame_id
+        self._lap(t, "kf", "add")
+        self._local_mapping_step(slot, frame_id)
+        self._lap(t, "kf", "mapping")
+        self.last_kp_pt = self.map.kf_pt[slot]
+
+    def _local_mapping_step(self, kf_slot: int, frame_id: int = -1):
+        """LocalMapping::Run for one keyframe (LocalMapping.cc:49-145): cull
+        points, triangulate with neighbours, fuse, local BA, cull keyframes.
+        Enqueued without waiting, apart from eigh's check in triangulation."""
+        t = self._lap_start()
+        cfg = self.cfg
+        f = self._kf_fids
+        fid_recent_min = f[-4] if len(f) >= 4 else 0
+        fid_old_max = f[-3] if len(f) >= 3 else -(1 << 30)
+        self.map = ms.cull_points(self.map, bm.point_cull_mask(self.map, fid_recent_min, fid_old_max))
+        n_nb = 10
+        pos, kp2, chosen, nb_ids = bm.triangulate_with_neighbors(
+            self.map, kf_slot, self.K, scale_factor=cfg.orb.scale_factor, n_nb=n_nb,
+        )
+        avail_dev, avail_np = self._alloc_begin(n_nb * self.map.kf_pt.shape[1])
+        self.map, n_dev = bm.insert_triangulated(
+            self.map, kf_slot, pos, kp2, chosen, nb_ids, avail_dev, cfg.caps.max_points, fid=frame_id,
+        )
+        self._alloc_end(n_dev, avail_np)
+        self._lap(t, "map", "tri")
+        self.map = bm.fuse_duplicates(self.map, kf_slot, self.K)
+        self.map = ms.update_point_stats(self.map)
+        self._lap(t, "map", "fuse")
+        if self.n_kf > 2:
+            self.map, _ = run_local_ba(self.map, kf_slot, self.cam, cfg)
+        self._lap(t, "map", "ba")
+        if self.n_kf > 3:
+            self.map, _ = ms.cull_keyframes_sequential(
+                self.map, kf_slot, cfg.tracking.kf_cull_redundancy, th_obs=cfg.tracking.kf_cull_min_obs,
+            )
+        self._snapshot_free_slots()
+        self._lap(t, "map", "kfcull")

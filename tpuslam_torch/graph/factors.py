@@ -1,5 +1,5 @@
-"""Reprojection factors for motion-only pose optimization (port of the
-point-factor part of ``tpuslam/graph/factors.py``).
+"""Reprojection factors for pose optimization and bundle adjustment (port of
+the point-factor part of ``tpuslam/graph/factors.py``).
 
 The reference writes single-factor closures and vmaps them; here each
 function takes a batch of points in its leading dimensions.
@@ -17,6 +17,10 @@ from ..core import geometry as geo
 
 def retract_pose(T, delta6):
     return geo.se3_exp(delta6) @ T
+
+
+def retract_point(X, delta3):
+    return X + delta3
 
 
 def _safe_z(p):
@@ -60,6 +64,26 @@ def stereo_jacobian(T_cw, X, fx, fy, bf):
     eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(p.shape[:-1] + (3, 3))
     dp_dxi = torch.cat([-geo.so3_hat(p), eye], dim=-1)  # (..., 3, 6)
     return dr_dp @ dp_dxi
+
+
+def mono_jacobians(T_cw, X, fx, fy):
+    """d mono_residual / d (pose delta, point delta) at zero for
+    ``retract_pose`` and ``retract_point``: ((..., 2, 6), (..., 2, 3)).
+
+    The reference differentiates through ``factors.linearize`` (forward
+    mode); with p = T X, dp/d[omega, upsilon] = [-[p]_x, I] and dp/dX = R.
+    The depth clamp of ``mono_residual`` has zero slope."""
+    p = geo.se3_apply(T_cw, X)
+    z = _safe_z(p)
+    live = (torch.abs(p[..., 2]) >= 1e-6).to(p.dtype)
+    inv_z = 1.0 / z
+    zero = torch.zeros_like(z)
+    du = torch.stack([fx * inv_z, zero, -fx * p[..., 0] * inv_z * inv_z * live], dim=-1)
+    dv = torch.stack([zero, fy * inv_z, -fy * p[..., 1] * inv_z * inv_z * live], dim=-1)
+    dr_dp = torch.stack([du, dv], dim=-2)  # (..., 2, 3)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(p.shape[:-1] + (3, 3))
+    dp_dxi = torch.cat([-geo.so3_hat(p), eye], dim=-1)  # (..., 3, 6)
+    return dr_dp @ dp_dxi, dr_dp @ T_cw[..., :3, :3]
 
 
 def huber_weight(chi2, delta2):

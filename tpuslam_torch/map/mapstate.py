@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.config import Capacities
+from ..kernels.orb import topk_stable
 
 
 @dataclass
@@ -228,7 +229,10 @@ def predict_scale_level(dist, max_dist, n_levels: int = 8, scale_factor: float =
 
 def _set_row(a, slot: int, value):
     out = a.clone()
-    out[slot] = value
+    if isinstance(value, torch.Tensor):
+        out[slot] = value
+    else:  # a Python number: fill_ passes it as an argument, no host copy
+        out[slot].fill_(value)
     return out
 
 
@@ -294,3 +298,214 @@ def assign_observations(m: MapState, kf_slot: int, kp_idx, pt_ids, ok) -> MapSta
     kp_idx = torch.where(ok, kp_idx, N)
     row = _padset(m.kf_pt[kf_slot], kp_idx, pt_ids.to(m.kf_pt.dtype))
     return m.replace(kf_pt=_set_row(m.kf_pt, kf_slot, row))
+
+
+def assign_observations_flat(m: MapState, kf_rows, kp_idx, pt_ids, ok) -> MapState:
+    """kf_pt[kf_rows[i], kp_idx[i]] = pt_ids[i] where ok[i], across many
+    keyframes in one scatter (the last lane wins a repeated cell)."""
+    K, N = m.kf_pt.shape
+    flat_idx = torch.where(ok, kf_rows.long() * N + kp_idx.long(), K * N)
+    flat = _padset(m.kf_pt.reshape(-1), flat_idx, pt_ids.to(m.kf_pt.dtype))
+    return m.replace(kf_pt=flat.reshape(K, N))
+
+
+def cull_points(m: MapState, kill_mask) -> MapState:
+    """Mark points invalid and unlink them from every keyframe."""
+    kill_of_obs = (m.kf_pt >= 0) & kill_mask[m.kf_pt.clamp(min=0).long()]
+    return m.replace(
+        pt_valid=m.pt_valid & ~kill_mask,
+        kf_pt=torch.where(kill_of_obs, -1, m.kf_pt),
+    )
+
+
+def nanmedian(x):
+    """Median over the last axis of the non-NaN entries, interpolated as
+    ``jnp.nanmedian`` does (``lo * (1 - w) + hi * w``); NaN when none."""
+    finite = ~torch.isnan(x)
+    n = torch.sum(finite, dim=-1)
+    srt = torch.sort(torch.where(finite, x, float("inf")), dim=-1).values
+    pos = 0.5 * (n - 1).clamp(min=0).to(x.dtype)
+    low = torch.floor(pos)
+    w = pos - low
+    lo_i = low.long()
+    hi_i = torch.minimum(lo_i + 1, (n - 1).clamp(min=0))
+    lo = srt.gather(-1, lo_i[..., None])[..., 0]
+    hi = srt.gather(-1, hi_i[..., None])[..., 0]
+    return torch.where(n > 0, lo * (1.0 - w) + hi * w, float("nan"))
+
+
+def scene_median_depth(m: MapState, kf):
+    """Median depth of keyframe ``kf``'s tracked points in its camera frame
+    (KeyFrame::ComputeSceneMedianDepth); +inf when it tracks none.  ``kf``
+    is an int or a (L,) tensor of keyframes, giving (L,) medians."""
+    dev = m.kf_pt.device
+    kf_t = kf.long().reshape(-1) if isinstance(kf, torch.Tensor) else torch.arange(kf, kf + 1, device=dev)
+    row = m.kf_pt[kf_t]
+    pt = row.clamp(min=0).long()
+    has = (row >= 0) & m.kf_kp_valid[kf_t] & m.pt_valid[pt]
+    T = m.kf_pose[kf_t]
+    z = torch.einsum("lnk,lk->ln", m.pt_pos[pt], T[:, 2, :3]) + T[:, 2, 3:4]
+    med = nanmedian(torch.where(has, z, float("nan")))
+    med = torch.where(torch.isnan(med), float("inf"), med)
+    return med if isinstance(kf, torch.Tensor) and kf.dim() == 1 else med[0]
+
+
+def keyframe_redundancy(m: MapState, th_obs: int = 3, scale_slack: int = 1, n_octaves: int = 8):
+    """(K,) fraction of each keyframe's tracked points that at least
+    ``th_obs`` other keyframes observe at the same or a finer scale
+    (LocalMapping::KeyFrameCulling's rule, as one per-octave histogram)."""
+    P = m.pt_pos.shape[0]
+    pt = m.kf_pt.clamp(min=0).long()
+    obs = (m.kf_pt >= 0) & m.kf_kp_valid & m.kf_valid[:, None] & m.pt_valid[pt]
+    octv = m.kf_octave.clamp(0, n_octaves - 1).long()
+    cols = torch.where(obs, pt, P)
+    hist = torch.zeros(n_octaves * (P + 1), dtype=torch.float32, device=pt.device)
+    hist = hist.index_add(0, (octv * (P + 1) + cols).reshape(-1),
+                          torch.ones(cols.numel(), device=pt.device))
+    cnt_le = torch.cumsum(hist.reshape(n_octaves, P + 1)[:, :P], dim=0)
+    o_idx = (octv + scale_slack).clamp(0, n_octaves - 1)
+    others = cnt_le[o_idx, pt] - 1.0  # the keyframe's own observation excluded
+    red = obs & (others >= th_obs)
+    n_obs = torch.sum(obs.to(torch.float32), dim=1)
+    n_red = torch.sum(red.to(torch.float32), dim=1)
+    return torch.where(n_obs > 0, n_red / torch.clamp(n_obs, min=1.0), 0.0)
+
+
+def cull_keyframes(m: MapState, kill_mask) -> MapState:
+    """Remove keyframes (KeyFrame::SetBadFlag): invalidate the rows, drop
+    their observations, and kill each point that lost one of them and is
+    left with <= 2 observers (MapPoint::EraseObservation).  Plane and cuboid
+    counters are lifetime statistics and stay."""
+    kill_col = kill_mask[:, None]
+    P = m.pt_pos.shape[0]
+    lost_rows = kill_col & (m.kf_pt >= 0) & m.kf_kp_valid
+    lost = torch.zeros(P + 1, dtype=torch.bool, device=kill_mask.device).index_fill(
+        0, torch.where(lost_rows, m.kf_pt, P).reshape(-1).long(), True
+    )[:P]
+    m = m.replace(
+        kf_valid=m.kf_valid & ~kill_mask,
+        kf_kp_valid=m.kf_kp_valid & ~kill_col,
+        kf_pt=torch.where(kill_col, -1, m.kf_pt),
+        kf_plane_valid=m.kf_plane_valid & ~kill_col,
+        kf_plane_map=torch.where(kill_col, -1, m.kf_plane_map),
+        kf_plane_ver=torch.where(kill_col, -1, m.kf_plane_ver),
+        kf_plane_par=torch.where(kill_col, -1, m.kf_plane_par),
+        kf_cub_valid=m.kf_cub_valid & ~kill_col,
+        kf_cub_map=torch.where(kill_col, -1, m.kf_cub_map),
+        kf_kp_cub=torch.where(kill_col, -1, m.kf_kp_cub),
+    )
+    return cull_points(m, lost & m.pt_valid & (point_obs_counts(m) <= 2))
+
+
+def select_map(cond, a: MapState, b: MapState) -> MapState:
+    """Field-wise ``where(cond, b, a)`` for a 0-d bool tensor ``cond``."""
+    return MapState(**{k: torch.where(cond, getattr(b, k), getattr(a, k)) for k in FIELDS})
+
+
+def cull_keyframes_sequential(m: MapState, center_kf: int, redundancy_th: float,
+                              th_obs: int = 3, max_passes: int = 3):
+    """Up to ``max_passes`` sequential KeyFrameCulling passes: each
+    recomputes redundancy, kills the single most redundant eligible keyframe
+    (never slot 0 or ``center_kf``), and the rest do nothing once none
+    qualifies.  A fixed loop whose steps are selects: no host wait.
+    Returns (map, n_culled)."""
+    K = m.kf_pose.shape[0]
+    dev = m.kf_pt.device
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    n = torch.zeros((), dtype=torch.int32, device=dev)
+    not_pinned = torch.ones(K, dtype=torch.bool, device=dev)
+    not_pinned[0].fill_(False)
+    not_pinned[center_kf].fill_(False)
+    for _ in range(max_passes):
+        red = keyframe_redundancy(m, th_obs=th_obs)
+        cov_row = covisibility(m)[center_kf]
+        elig = (red >= redundancy_th) & (cov_row >= 15.0) & m.kf_valid & not_pinned
+        any_elig = torch.any(elig) & ~done
+        victim = torch.argmax(torch.where(elig, red, -1.0))
+        kill = (torch.arange(K, device=dev) == victim) & any_elig
+        m = select_map(any_elig, m, cull_keyframes(m, kill))
+        done = done | ~any_elig
+        n = n + any_elig.to(torch.int32)
+    return m, n
+
+
+def keypoint_of_point(m: MapState):
+    """(K, P) int32: the keypoint of keyframe k observing point p, -1 when k
+    does not observe p (the inverse of ``kf_pt``; where two keypoints of one
+    keyframe hold one point, the higher keypoint wins, as on the reference)."""
+    K, N = m.kf_pt.shape
+    P = m.pt_pos.shape[0]
+    dev = m.kf_pt.device
+    linked = (m.kf_pt >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
+    cols = torch.where(linked, m.kf_pt, P).long()
+    flat_idx = (torch.arange(K, device=dev)[:, None] * (P + 1) + cols).reshape(-1)
+    kp = torch.arange(N, dtype=torch.int32, device=dev).expand(K, N).reshape(-1)
+    kp_of = scatter_last(torch.full((K * (P + 1),), -1, dtype=torch.int32, device=dev), flat_idx, kp)
+    return kp_of.reshape(K, P + 1)[:, :P]
+
+
+def popcount32(x):
+    """Bits set in each int32 word (counted as its uint32 bit pattern)."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def update_point_stats(m: MapState, max_obs: int = 8, n_levels: int = 8,
+                       scale_factor: float = 1.2) -> MapState:
+    """Refresh each point's distinctive descriptor (the observation of
+    least median Hamming distance to the others, over up to ``max_obs``
+    observers), mean viewing normal, and scale band from its anchor
+    observation (MapPoint::ComputeDistinctiveDescriptors and
+    UpdateNormalAndDepth), batched over the whole map."""
+    K, N = m.kf_pt.shape
+    P = m.pt_pos.shape[0]
+    dev = m.kf_pt.device
+    obs = incidence(m) > 0  # (K, P)
+    Rt = m.kf_pose[:, :3, :3].transpose(1, 2)
+    centers = -torch.einsum("kij,kj->ki", Rt, m.kf_pose[:, :3, 3])
+
+    diff = m.pt_pos[None, :, :] - centers[:, None, :]  # (K, P, 3)
+    dirs = diff / (torch.linalg.vector_norm(diff, dim=-1, keepdim=True) + 1e-9)
+    normal = torch.einsum("kp,kpd->pd", obs.to(torch.float32), dirs)
+    nrm = torch.linalg.vector_norm(normal, dim=-1, keepdim=True)
+    normal = torch.where(nrm > 1e-6, normal / nrm, m.pt_normal)
+
+    M = min(max_obs, K)
+    kp_of = keypoint_of_point(m)  # (K, P)
+    val, kf_ids = topk_stable(obs.T.to(torch.float32), M)  # (P, M)
+    obs_mask = val > 0
+    p_idx = torch.arange(P, device=dev)
+    kp_ids = kp_of[kf_ids, p_idx[:, None]]
+    obs_mask = obs_mask & (kp_ids >= 0)
+    cnt = torch.sum(obs_mask, dim=1)
+
+    descs = m.kf_desc[kf_ids, kp_ids.clamp(min=0).long()]  # (P, M, 8)
+    x = descs[:, :, None, :] ^ descs[:, None, :, :]
+    ham = torch.sum(popcount32(x), dim=-1).to(torch.float32)  # (P, M, M)
+    ham = torch.where(obs_mask[:, None, :], ham, float("inf"))
+    srt = torch.sort(ham, dim=-1).values
+    med_idx = torch.clamp(cnt - 1, min=0) // 2
+    med = srt.gather(-1, med_idx[:, None, None].expand(P, M, 1))[..., 0]
+    med = torch.where(obs_mask, med, float("inf"))
+    best = torch.argmin(med, dim=-1)
+    new_desc = descs[p_idx, best]
+    has_obs = cnt > 0
+    pt_desc = torch.where(has_obs[:, None], new_desc, m.pt_desc)
+
+    ref_kf = m.pt_first_kf.clamp(0, K - 1).long()
+    ref_kp = kp_of[ref_kf, p_idx]
+    ref_ok = m.kf_valid[ref_kf] & (ref_kp >= 0)
+    ref_kf = torch.where(ref_ok, ref_kf, kf_ids[:, 0])
+    ref_kp = torch.where(ref_ok, ref_kp, kp_ids[:, 0])
+    dist = torch.linalg.vector_norm(m.pt_pos - centers[ref_kf], dim=-1)
+    level = m.kf_octave[ref_kf, ref_kp.clamp(min=0).long()].to(torch.float32)
+    max_d = dist * scale_factor**level
+    min_d = max_d / scale_factor ** float(n_levels - 1)
+    return m.replace(
+        pt_normal=normal, pt_desc=pt_desc,
+        pt_min_dist=torch.where(has_obs, min_d, m.pt_min_dist),
+        pt_max_dist=torch.where(has_obs, max_d, m.pt_max_dist),
+    )
