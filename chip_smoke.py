@@ -51,12 +51,25 @@ In order, it
      first tracked frame below 40, tracked >= 0.9 x the frames after
      initialization, raw ATE <= 1.5 x the JAX package's + 0.01 m, keyframes
      created within 0.7-1.3 x the JAX package's (``JAX_GOLDEN_200``);
-  8. prints each phase's seconds, the slice's frames/s and each kernel's
+  8. the flagship: renders the same 200 frames on the card again with the
+     renderer's per-primitive pixel counts and face sums (the frames must
+     equal phase 7's), builds each frame's offline plane and cuboid
+     detections from them, and replays them through ``run_loop`` and the
+     ``Tracker`` with the flags of ``mono_icl --planes --objects`` on the
+     golden ``ICL.yaml`` (loops off), then prints a ``flagship`` line
+     (phase 7's keys plus planes, cuboids, metric rescales and the valid
+     plane and bbox factors summed over the local BAs).  Gates against
+     ``JAX_FLAGSHIP_200``: first tracked frame below 40, tracked >= 0.9 x
+     the frames after initialization, keyframes created within 0.7-1.3 x,
+     planes and cuboids each >= 1 and within +-2, at least one rescale,
+     plane and bbox factors live in BA, raw ATE <= 1.5 x + 0.01 m; and K1
+     and K2 held to their plain versions at this replay's shapes;
+  9. prints each phase's seconds, the slice's frames/s and each kernel's
      device time (launches queued behind a spin, ``kernels/timing.py``)
      beside its bound and its plain version's host-paced time, then one
-     JSON line of kernels (launches summed over the three paths that run
-     on the card: the slice, the card's small replay and the golden
-     replay), the card line, and the result.
+     JSON line of kernels (launches summed over the four paths that run
+     on the card: the slice, the card's small replay, the golden replay
+     and the flagship), the card line, and the result.
 
 It imports nothing of JAX.  Any failed phase raises, and the script exits
 non-zero without printing the result line.
@@ -95,6 +108,14 @@ JAX_GOLDEN_200 = {
     "first_tracked": 4, "tracked": 196, "keyframes_created": 40, "keyframes_live": 12,
     "points": 1139, "ate_raw_m": 0.013183368499423994, "ate_m": 0.02813167803444424,
     "kf_ate_m": 0.018481896093696035,
+}
+# The JAX package's own CPU run of the flagship (mono_icl --planes
+# --objects, loops off), first 200 frames, the configuration of phase 8
+# (PERF.md section 6; made by jax_golden_reference.py --frames 200 --flagship)
+JAX_FLAGSHIP_200 = {
+    "first_tracked": 4, "tracked": 196, "keyframes_created": 40, "keyframes_live": 11, "points": 937,
+    "planes": 4, "cuboids": 2, "rescales": 35, "ba_plane_factors": 745, "ba_bbox_factors": 27,
+    "ate_raw_m": 0.05880955257317187, "ate_m": 0.07443938331379683, "kf_ate_m": 0.08390803846630975,
 }
 GOLDEN_FRAMES = 200
 SMALL_FRAMES = 48
@@ -278,28 +299,71 @@ def golden_replay(golden, dev):
     n_px = int((frames != golden.render_golden(GOLDEN_FRAMES, cspec, "cpu")[0]).sum())
     check(n_px == 0, f"golden frames: the card's and the CPU's renders differ on {n_px} of {frames.numel()} pixels")
     rep, tr = golden.run_golden(GOLDEN_FRAMES, dev, count_waits=True, rendered=(frames, gt))
-    keys = ("frames", "tracked", "first_tracked", "keyframes_created", "keyframes_live", "points",
-            "ate_rmse_raw_m", "ate_rmse_m", "kf_ate_rmse_m", "frames_per_s", "median_frame_ms",
-            "kf_stage_ms", "kf_stage_device_ms", "kf_frame_ids")
-    line = {k: rep.get(k) for k in keys}
+    line = {k: rep.get(k) for k in GOLDEN_KEYS}
+    line.update(wait_summary(tr))
+    print("golden " + json.dumps(line), flush=True)
+    replay_gates("golden", rep, JAX_GOLDEN_200)
+    return line, tr, frames
+
+
+GOLDEN_KEYS = ("frames", "tracked", "first_tracked", "keyframes_created", "keyframes_live", "points",
+               "ate_rmse_raw_m", "ate_rmse_m", "kf_ate_rmse_m", "frames_per_s", "median_frame_ms",
+               "kf_stage_ms", "kf_stage_device_ms", "kf_frame_ids")
+
+
+def wait_summary(tr):
+    """Host waits per hot-path, keyframe and initialization frame, with their sources."""
+    line = {}
     for kind in ("hot", "keyframe", "init"):
         waits = [w for w in tr.frame_waits if w[1] == kind]
         sources = sum((w[3] for w in waits), Counter())
         line[f"{kind}_frames"] = len(waits)
         line[f"host_waits_per_{kind}_frame"] = float(np.mean([w[2] for w in waits])) if waits else None
         line[f"host_wait_sources_{kind}"] = dict(sources.most_common(8))
-    print("golden " + json.dumps(line), flush=True)
-    ref = JAX_GOLDEN_200
+    return line
+
+
+def replay_gates(name, rep, ref):
+    """The gates phases 7 and 8 share, against the JAX package's CPU run."""
     first = rep["first_tracked"]
-    check(first is not None and first < 40, f"golden: first tracked frame {first} < 40")
+    check(first is not None and first < 40, f"{name}: first tracked frame {first} < 40")
     check(rep["tracked"] >= 0.9 * (GOLDEN_FRAMES - first),
-          f"golden: tracked {rep['tracked']} >= 0.9 x {GOLDEN_FRAMES - first} frames after initialization")
+          f"{name}: tracked {rep['tracked']} >= 0.9 x {GOLDEN_FRAMES - first} frames after initialization")
     lim = 1.5 * ref["ate_raw_m"] + 0.01
-    check(rep["ate_rmse_raw_m"] <= lim, f"golden: raw ATE {rep['ate_rmse_raw_m']:.4f} m <= {lim:.4f} m "
+    check(rep["ate_rmse_raw_m"] <= lim, f"{name}: raw ATE {rep['ate_rmse_raw_m']:.4f} m <= {lim:.4f} m "
           f"(JAX package {ref['ate_raw_m']:.4f} m)")
     n, n_ref = rep["keyframes_created"], ref["keyframes_created"]
-    check(0.7 * n_ref <= n <= 1.3 * n_ref, f"golden: {n} keyframes created, JAX package {n_ref}")
-    return line, tr, frames
+    check(0.7 * n_ref <= n <= 1.3 * n_ref, f"{name}: {n} keyframes created, JAX package {n_ref}")
+
+
+def flagship_replay(golden, dev, golden_frames):
+    """Phase 8: the flagship over the first 200 golden frames at full width.
+    The card renders them again with the per-primitive counts; the frames
+    must equal phase 7's.  Returns the report line and the tracker."""
+    cspec, cfg = golden.golden_setup(flagship=True)
+    rendered = golden.render_golden(GOLDEN_FRAMES, cspec, dev, cfg)
+    n_px = int((rendered[0] != golden_frames).sum())
+    check(n_px == 0, f"flagship frames: equal to phase 7's ({n_px} pixels differ)")
+    n_pdet = sum(int(p.valid.sum()) for p, _ in rendered[2])
+    n_cdet = sum(int(c.valid.sum()) for _, c in rendered[2])
+    print(f"flagship detections: {n_pdet} planes and {n_cdet} cuboids over {GOLDEN_FRAMES} frames", flush=True)
+    rep, tr = golden.run_golden(GOLDEN_FRAMES, dev, count_waits=True, rendered=rendered, flagship=True)
+    line = {k: rep.get(k) for k in GOLDEN_KEYS + ("planes", "cuboids", "rescales", "ba_mono_factors",
+                                                  "ba_plane_obs_factors", "ba_cub_bbox_factors")}
+    line["rescale_fired"] = rep["rescales"] > 0
+    line.update(wait_summary(tr))
+    print("flagship " + json.dumps(line), flush=True)
+    ref = JAX_FLAGSHIP_200
+    replay_gates("flagship", rep, ref)
+    for key in ("planes", "cuboids"):
+        n, n_ref = rep[key], ref[key]
+        check(n >= 1 and abs(n - n_ref) <= 2, f"flagship: {n} {key}, JAX package {n_ref} (>= 1, within 2)")
+    check(rep["rescales"] >= 1, f"flagship: the metric rescale fired {rep['rescales']} times "
+          f"(JAX package {ref['rescales']})")
+    for key, ref_key in (("ba_plane_obs_factors", "ba_plane_factors"), ("ba_cub_bbox_factors", "ba_bbox_factors")):
+        check(rep.get(key, 0) > 0, f"flagship: {rep.get(key, 0)} valid {key[3:-8]} factors over the local BAs "
+              f"(JAX package {ref[ref_key]})")
+    return line, tr
 
 
 def random_descriptors(n, seed, device):
@@ -466,9 +530,24 @@ def main() -> int:
     k1_err = max(k1_err, hold_k1({"golden_frame0": (pyr, dims)}, cuda_fast, orb))
     k2_err = max(k2_err, hold_k2({"golden_frame_vs_ref_kf": k2_in}, cuda_match))
     phase_s["golden_replay"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # --- 8. the flagship: planes and objects -------------------------------------
+    reset_launches()
+    flag, tr_flag = flagship_replay(golden, dev, gold_frames)
+    launches_flag = read_launches()
+    print(f"launches: flagship {launches_flag}", flush=True)
+    check(launches_flag["fast_nms"] == GOLDEN_FRAMES,
+          f"fast_nms launched {launches_flag['fast_nms']} times in {GOLDEN_FRAMES} flagship frames")
+    check(launches_flag["hamming_top2"] >= flag["tracked"] - 1,
+          f"hamming_top2 launched {launches_flag['hamming_top2']} times, once per hot-path frame")
+    (pyr, dims), k2_in = tracker_kernel_cases(tr_flag, gold_frames[0])
+    k1_err = max(k1_err, hold_k1({"flagship_frame0": (pyr, dims)}, cuda_fast, orb))
+    k2_err = max(k2_err, hold_k2({"flagship_frame_vs_ref_kf": k2_in}, cuda_match))
+    phase_s["flagship_replay"] = time.perf_counter() - t_phase
     print("phase seconds " + json.dumps(phase_s), flush=True)
 
-    # --- 8. report --------------------------------------------------------------
+    # --- 9. report --------------------------------------------------------------
     print(json.dumps({
         "slice_frames_per_s": fps, "slice_seconds": dt, "frames": n_frames,
         "median_n_final": float(np.median(n_final)), "final_x_m": x_last, "expected_x_m": x_expect,
@@ -476,11 +555,13 @@ def main() -> int:
         "small_replay_centre_max": small["centre_max"], "small_replay_angle_max": small["angle_max"],
         "small_replay_init_angle": small["init_angle"],
         "small_replay_raw_pose_max_diff": small["raw_max"], "small_replay_split_frame": small["split_frame"],
-        "golden_frames_per_s": gold["frames_per_s"], "phase_s": phase_s,
+        "golden_frames_per_s": gold["frames_per_s"], "flagship_frames_per_s": flag["frames_per_s"],
+        "phase_s": phase_s,
     }))
     kernels = [
         {"name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
-         "launches": launches[name] + launches_small[name] + launches_golden[name], "max_abs_err": err, **k}
+         "launches": launches[name] + launches_small[name] + launches_golden[name] + launches_flag[name],
+         "max_abs_err": err, **k}
         for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Points-only golden replay with the JAX package, on the CPU: the reference
-numbers that the PyTorch port's golden replay is held to.
+"""Golden replay with the JAX package, on the CPU: the reference numbers that
+the PyTorch port's golden replays are held to.
 
     JAX_PLATFORMS=cpu python jax_golden_reference.py --frames 200
+    JAX_PLATFORMS=cpu python jax_golden_reference.py --frames 200 --flagship
 
 It renders the first ``--frames`` frames of the bench's golden trajectory
 (560 frames, 400 degrees, ``bench.py:bench_golden``) in memory with
@@ -13,6 +14,16 @@ the golden ``ICL.yaml``.  The report (frames tracked, the first tracked
 frame, keyframes created and live, live points, raw / corrected / keyframe
 ATE) is printed as one JSON line; ``chip_smoke.py``'s ``JAX_GOLDEN_200``
 holds the one of ``--frames 200``.
+
+``--flagship`` runs the configuration of ``mono_icl --planes --objects`` on
+the golden ``ICL.yaml`` (loops off): each frame's plane and cuboid rows are
+made by ``synth._plane_rows_for_frame`` / ``_cuboid_lines_for_frame`` and
+written with ``write_sequence``'s formatting to a temporary folder, then read
+back with ``read_offline_planes`` / ``read_offline_cuboids`` (the cuboids
+with the frame's float32 camera-to-world pose), as ``mono_icl`` reads them.
+The report adds the planes and cuboids made, how often the metric rescale
+fired, and the valid plane and bbox factors summed over the local BAs;
+``chip_smoke.py``'s ``JAX_FLAGSHIP_200`` holds the one of ``--frames 200``.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -34,18 +46,47 @@ from tpuslam.core.config import Capacities, FeatureFlags, OrbConfig, SlamConfig 
 from tpuslam.frontend.tracking import Tracker  # noqa: E402
 from tpuslam.io import synth  # noqa: E402
 from tpuslam.io.trajectory import ate_rmse  # noqa: E402
+from tpuslam.graph import lm as jlm  # noqa: E402
+from tpuslam.map import mapstate as jms  # noqa: E402
+from tpuslam.semantic.detect import read_offline_cuboids, read_offline_planes  # noqa: E402
 
 GOLDEN_FRAMES = 560
 GOLDEN_ANGLE_DEG = 400.0
 
 
 def render(n: int, cam: synth.CameraSpec, total: int = GOLDEN_FRAMES,
-           angle: float = GOLDEN_ANGLE_DEG):
+           angle: float = GOLDEN_ANGLE_DEG, det_dir: str = ""):
+    """(uint8 frames, camera-to-world poses); with ``det_dir``, each frame's
+    plane and cuboid rows are written there as ``write_sequence`` writes them."""
     spec = synth.SceneSpec()
     poses = synth.trajectory(total, spec, total_angle_deg=angle)[:n]
     r = synth.make_batch_renderer(cam, spec)
-    out = [np.asarray(r(poses[i:i + 8])[0]).astype(np.uint8) for i in range(0, n, 8)]
+    u, v = np.meshgrid(np.arange(cam.width, dtype=np.float32), np.arange(cam.height, dtype=np.float32))
+    d_cam = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, np.ones_like(u)], axis=-1)
+    out = []
+    for i in range(0, n, 8):
+        g_b, t_b, id_b = (np.asarray(x) for x in r(poses[i:i + 8]))
+        out.append(g_b.astype(np.uint8))
+        for j in range(len(g_b)) if det_dir else ():
+            f = i + j
+            rows = synth._plane_rows_for_frame(poses[f], id_b[j], t_b[j][..., None] * d_cam, spec, 1500)
+            with open(os.path.join(det_dir, f"{f}_offline_plane_multiplane.txt"), "w") as fh:
+                for row in rows:
+                    fh.write(" ".join(f"{x:.9f}" for x in row) + "\n")
+            lines = synth._cuboid_lines_for_frame(poses[f], id_b[j], spec, 400)
+            with open(os.path.join(det_dir, f"{f:04d}_3d_cuboids.txt"), "w") as fh:
+                fh.write("\n".join(lines) + ("\n" if lines else ""))
     return np.concatenate(out), poses
+
+
+def flagship_flags():
+    """``mono_icl --planes --objects`` with the golden ICL.yaml (it sets none
+    of the optional keys), loop closing off."""
+    return FeatureFlags(
+        detect_object=True, read_offline_cuboidtxt=True, detect_plane=True, read_offline_planetxt=True,
+        associate_cuboid_with_classname=True, optimize_with_plane_3d=True, optimize_with_cuboid_2d=True,
+        enable_ground_height_scale=True, enable_loop_closing=False,
+    )
 
 
 def main(argv=None):
@@ -53,6 +94,8 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--small", action="store_true",
                     help="320x240, fx 260, 512 features, the capacities of tests/test_long_replay.py")
+    ap.add_argument("--flagship", action="store_true",
+                    help="mono_icl --planes --objects: offline plane and cuboid detections")
     args = ap.parse_args(argv)
     if args.small:
         cspec = synth.CameraSpec(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
@@ -60,17 +103,39 @@ def main(argv=None):
         orb = OrbConfig(n_features=512)
     else:
         cspec, caps, orb = synth.CameraSpec(), Capacities(), OrbConfig()
-    cfg = SlamConfig().replace(sensor="mono", caps=caps, orb=orb,
-                               flags=FeatureFlags(enable_loop_closing=False))
-    frames, poses_wc = render(args.frames, cspec)
+    flags = flagship_flags() if args.flagship else FeatureFlags(enable_loop_closing=False)
+    cfg = SlamConfig().replace(sensor="mono", caps=caps, orb=orb, flags=flags)
+    det_dir = tempfile.mkdtemp(prefix="golden_det_") if args.flagship else ""
+    frames, poses_wc = render(args.frames, cspec, det_dir=det_dir)
     cam = Camera.make(cspec.fx, cspec.fy, cspec.cx, cspec.cy, width=cspec.width,
                       height=cspec.height, bf=cspec.fx * cspec.baseline)
+    K_np = np.asarray(cam.K)
     tracker = Tracker(cam, cfg)
+    sem = {"rescales": 0, "ba_plane_factors": 0, "ba_bbox_factors": 0}
+    if args.flagship:
+        rescale, local_ba = jms.rescale_map, jlm.local_ba
+
+        def counted_rescale(m, s_):
+            sem["rescales"] += 1
+            return rescale(m, s_)
+
+        def counted_local_ba(state, data, w, **kw):
+            sem["ba_plane_factors"] += int(np.asarray(data.plane_obs.valid).sum())
+            sem["ba_bbox_factors"] += int(np.asarray(data.cub_bbox.valid).sum())
+            return local_ba(state, data, w, **kw)
+
+        jms.rescale_map, jlm.local_ba = counted_rescale, counted_local_ba
     times, first = [], None
     t_all = time.perf_counter()
     for fid, gray in enumerate(frames):
+        pdet = cdet = None
+        if args.flagship:
+            pdet = read_offline_planes(os.path.join(det_dir, f"{fid}_offline_plane_multiplane.txt"),
+                                       cfg.caps.max_planes_per_frame)
+            cdet = read_offline_cuboids(os.path.join(det_dir, f"{fid:04d}_3d_cuboids.txt"), poses_wc[fid],
+                                        K_np, cfg.caps.max_cuboids_per_frame)
         t0 = time.perf_counter()
-        T = tracker.process_image(gray, fid)
+        T = tracker.process_image(gray, fid, plane_det=pdet, cuboid_det=cdet)
         times.append(time.perf_counter() - t0)
         if T is not None and first is None:
             first = fid
@@ -86,6 +151,9 @@ def main(argv=None):
         "keyframes_live": int(np.asarray(tracker.map.kf_valid).sum()),
         "kf_frame_ids": [int(f) for f in tracker._kf_fids],
         "points": tracker.live_points(),
+        "planes": tracker.n_plane,
+        "cuboids": tracker.n_cub,
+        **(sem if args.flagship else {}),
         "wall_s": wall,
         "median_frame_ms": 1e3 * float(np.median(times)),
     }

@@ -17,6 +17,7 @@ threads, differs by up to 7e-4 over these frames; the two packages
 differed by 1.4e-3 where this test was written.
 """
 
+import dataclasses
 import numpy as np
 import pytest
 import torch
@@ -90,10 +91,12 @@ def test_tracker_refuses_what_the_port_lacks():
     c = sc.CSPEC
     cam = Camera.make(c.fx, c.fy, c.cx, c.cy, "cpu", width=c.width, height=c.height)
     base = _cfg(tcfg)
-    for cfg in (base.replace(sensor="rgbd"), base.replace(flags=tcfg.FeatureFlags()),
-                base.replace(flags=tcfg.FeatureFlags(enable_loop_closing=False, detect_plane=True))):
+    for cfg in (base.replace(sensor="rgbd"), base.replace(sensor="stereo"), base.replace(flags=tcfg.FeatureFlags())):
         with pytest.raises(NotImplementedError):
             ttr.Tracker(cam, cfg, device="cpu")
+    # planes and objects are ported: every other flag is accepted
+    every = {f.name: True for f in dataclasses.fields(tcfg.FeatureFlags) if f.name != "enable_loop_closing"}
+    ttr.Tracker(cam, base.replace(flags=tcfg.FeatureFlags(enable_loop_closing=False, **every)), device="cpu")
     tt = ttr.Tracker(cam, base.replace(orb=tcfg.OrbConfig(n_features=256)), device="cpu")
     with pytest.raises(ValueError):
         tt.process_image(np.zeros((c.height, c.width), np.uint8), 0)

@@ -1,6 +1,5 @@
 """The app loop and its report (port of ``tpuslam/apps/common.py``:
-``run_loop``, ``_corrected_trajectory`` and the points-only part of
-``finish``).
+``run_loop``, ``_corrected_trajectory`` and ``finish``).
 """
 
 from __future__ import annotations
@@ -14,8 +13,9 @@ from collections import Counter
 import numpy as np
 import torch
 
+from ..core import geometry as geo
 from ..frontend.tracking import Tracker
-from ..io.trajectory import ate_rmse, save_tum
+from ..io.trajectory import ate_rmse, save_cuboids, save_planes, save_tum
 from ..utils.profiler import Profiler
 
 
@@ -30,9 +30,11 @@ def _stage(gray, device):
     return t
 
 
-def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False):
+def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False, per_frame=None):
     """Drive the tracker over ``(frame_id, gray)`` items.  The next frame's
     upload is started before the current frame is processed.
+    ``per_frame(frame_id)`` may return the frame's (plane_det, cuboid_det),
+    the semantic input of a keyframe.
 
     Returns the per-frame wall times (s).  With ``count_waits`` on a CUDA
     tracker, ``tracker.frame_waits`` gets one entry per frame: (frame id,
@@ -62,8 +64,9 @@ def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False)
         with ctx as caught:
             if counting:
                 warnings.simplefilter("always")
+            pdet, cdet = per_frame(fid) if per_frame is not None else (None, None)
             with prof.section("time single frame"):
-                tracker.process_image(gray, fid)
+                tracker.process_image(gray, fid, plane_det=pdet, cuboid_det=cdet)
         if counting:
             torch.cuda.set_sync_debug_mode("default")
             syncs = Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
@@ -118,10 +121,11 @@ def corrected_trajectory(tracker: Tracker):
 
 
 def finish(tracker: Tracker, frame_times, gt=None, out_dir: str = ""):
-    """The points-only report of the reference's ``finish``: counts, frame
-    times, per-keyframe stage ms, and with ``gt`` (world->camera poses by
-    frame id) the Sim3-aligned ATE of the corrected, the raw and the live
-    keyframe trajectories.  With ``out_dir``, also the TUM files."""
+    """The report of the reference's ``finish``: counts (planes and cuboids
+    among them), frame times, per-keyframe stage ms, and with ``gt``
+    (world->camera poses by frame id) the Sim3-aligned ATE of the corrected,
+    the raw and the live keyframe trajectories.  With ``out_dir``, also the
+    TUM files and CuboidPose.txt / PlanePose.txt."""
     tracker.flush()
     corrected = corrected_trajectory(tracker)
     if out_dir:
@@ -130,6 +134,12 @@ def finish(tracker: Tracker, frame_times, gt=None, out_dir: str = ""):
                  [p for _, p in corrected])
         save_tum(os.path.join(out_dir, "TrajectoryRaw.txt"), [f for f, _ in tracker.trajectory],
                  [p for _, p in tracker.trajectory])
+        m = tracker.map
+        if tracker.n_cub > 0:
+            v = geo.cuboid_to_minimal(m.cub_pose[:tracker.n_cub], m.cub_scale[:tracker.n_cub]).cpu().numpy()
+            save_cuboids(os.path.join(out_dir, "CuboidPose.txt"), list(v))
+        if tracker.n_plane > 0:
+            save_planes(os.path.join(out_dir, "PlanePose.txt"), list(m.plane_coef[:tracker.n_plane].cpu().numpy()))
     ft = np.array(frame_times)
     n_created = max(len(tracker._kf_fids), 1)
     report = {
@@ -139,6 +149,8 @@ def finish(tracker: Tracker, frame_times, gt=None, out_dir: str = ""):
         "keyframes_live": int(tracker.map.kf_valid.sum()),
         "keyframes_created": len(tracker._kf_fids),
         "points": tracker.live_points(),
+        "planes": tracker.n_plane,
+        "cuboids": tracker.n_cub,
         "loops": tracker.n_loops,
         "median_frame_s": float(np.median(ft)) if len(ft) else None,
         "mean_frame_s": float(ft.mean()) if len(ft) else None,

@@ -11,7 +11,8 @@ host can enqueue the next frame from this frame's device outputs.
 ``ref_kf`` is a Python int: the host owns the reference keyframe.
 
 ``Tracker`` is the host state machine every app drives: monocular
-initialization, the pipelined hot path, keyframe insertion and the local
+initialization, the pipelined hot path, keyframe insertion with its semantic
+step (the metric rescale, plane and cuboid association) and the local
 mapping step (point culling, triangulation, fusion, local BA, keyframe
 culling).
 """
@@ -35,6 +36,7 @@ from ..io.trajectory import se3_inv as se3_inv_np
 from ..kernels import match as km
 from ..kernels.orb import Features, OrbExtractor, topk_stable
 from ..map import mapstate as ms
+from ..semantic import associate as sa
 from .initializer import initialize_two_view, ransac_samples
 
 
@@ -339,6 +341,15 @@ def track_image_and_decide(
     return step, frame
 
 
+def _metric_scale_inputs(m: ms.MapState, kf_slot: int):
+    """The bound keypoints of keyframe ``kf_slot`` and their points in its
+    camera frame, for the metric-scale vote: (N,) bool, (N, 3)."""
+    row = m.kf_pt[kf_slot]
+    bound = (row >= 0) & m.kf_kp_valid[kf_slot]
+    T = m.kf_pose[kf_slot]
+    return bound, m.pt_pos[row.clamp(min=0).long()] @ T[:3, :3].T + T[:3, 3]
+
+
 def match_for_init(f1: Frame, f2: Frame):
     """SearchForInitialization (ORBmatcher.cc:405): 100 px window, 0.9 ratio,
     rotation consistency.  Gated, so on the dense path."""
@@ -380,31 +391,31 @@ class _HostCopy:
 
 class Tracker:
     """Host-side SLAM pipeline (System + Tracking + LocalMapping facade) for
-    a monocular camera, points only.
+    a monocular camera, with planes and objects.
 
-    Each frame runs tracking; a keyframe runs the mapping step inline.  The
-    hot path is pipelined: frame n's program is enqueued from frame n-1's
-    device outputs before frame n-1's scalars are read back, so the only
-    wait per tracked frame is on the previous frame's copy.  Entry points
-    run on ``device`` (``cuda:0`` unless the caller asks for the CPU).
+    Each frame runs tracking; a keyframe runs the semantic step and the
+    mapping step inline.  The hot path is pipelined: frame n's program is
+    enqueued from frame n-1's device outputs before frame n-1's scalars are
+    read back, so the only wait per tracked frame is on the previous
+    frame's copy.  Entry points run on ``device`` (``cuda:0`` unless the
+    caller asks for the CPU).  Every feature flag is accepted but loop
+    closing; ``associate_point_with_object`` and
+    ``build_worldframe_on_ground`` are read nowhere, as in the reference.
 
     Not ported yet: loop closing and relocalization against a BoW database,
-    planes and objects, stereo and RGB-D, localization mode, checkpoints."""
+    stereo and RGB-D (with online plane segmentation), localization mode,
+    checkpoints."""
 
     NOT_INITIALIZED = 0
     OK = 1
     LOST = 2
 
     def __init__(self, cam: Camera, cfg: SlamConfig, device="cuda:0"):
-        fl = cfg.flags
         if cfg.sensor != "mono":
-            raise NotImplementedError(f"sensor {cfg.sensor!r}: the port tracks mono only")
-        if fl.enable_loop_closing:
+            raise NotImplementedError(f"sensor {cfg.sensor!r}: the port tracks mono only (stereo and RGB-D "
+                                      "are not ported)")
+        if cfg.flags.enable_loop_closing:
             raise NotImplementedError("loop closing is not ported; pass FeatureFlags(enable_loop_closing=False)")
-        semantic = [f.name for f in dataclasses.fields(fl)
-                    if getattr(fl, f.name) and f.name not in ("enable_loop_closing", "distributed_ba")]
-        if semantic:
-            raise NotImplementedError(f"planes and objects are not ported: {semantic}")
         self.device = torch.device(device)
         if cam.dist.device != self.device:
             cam = dataclasses.replace(cam, dist=cam.dist.to(self.device))
@@ -443,6 +454,13 @@ class Tracker:
         self._kf_slot_fid: dict = {}
         self.n_inliers = 0
         self.n_loops = 0
+        self.n_plane = 0
+        self.n_cub = 0
+        self._metric_anchored = False  # the mono map was rescaled onto metric planes
+        self.n_rescales = 0  # metric rescales applied
+        self.ba_factors = {}  # valid factors per bundle summed over the local BAs (device scalars)
+        self._pending_plane_det = None
+        self._pending_cuboid_det = None
         self._pending = None  # the in-flight frame of the hot path
         self._dev_T = None
         self._dev_vel = None
@@ -509,8 +527,10 @@ class Tracker:
                 "map's per-keyframe arrays are padded to max_keypoints"
             )
 
-    def process_image(self, gray, frame_id: int):
+    def process_image(self, gray, frame_id: int, plane_det=None, cuboid_det=None):
         """Track one grayscale image (uint8 or float, numpy or tensor).
+        ``plane_det`` / ``cuboid_det``: this frame's detections
+        (``semantic/detect.py``, host numpy), used if it becomes a keyframe.
         Returns the pose of the frame resolved in this call: in the
         pipelined state that is the previous frame's, else this frame's."""
         self._check_feature_caps()
@@ -533,7 +553,7 @@ class Tracker:
             ref_at_dispatch = self.ref_kf  # out.T_ref is this slot's pose
             prev_pose = self._finish_pending()
             if self.state == self.OK:
-                self._pending = (frame_id, out, frame, ref_at_dispatch, fetch)
+                self._pending = (frame_id, out, frame, plane_det, cuboid_det, ref_at_dispatch, fetch)
                 self._dev_T = out.T
                 self._dev_vel = out.velocity
                 self.last_kp_pt = out.kp_pt
@@ -541,10 +561,12 @@ class Tracker:
             return prev_pose
         self.flush()
         feats = self.extractor(g.to(torch.float32))
-        return self.process_frame(frame_from_features(feats, self.cam), frame_id)
+        return self.process_frame(frame_from_features(feats, self.cam), frame_id, plane_det, cuboid_det)
 
-    def process_frame(self, frame: Frame, frame_id: int):
+    def process_frame(self, frame: Frame, frame_id: int, plane_det=None, cuboid_det=None):
         """Track one frame's features synchronously (no pipelining)."""
+        self._pending_plane_det = plane_det
+        self._pending_cuboid_det = cuboid_det
         if self.state == self.NOT_INITIALIZED:
             self._monocular_initialization(frame, frame_id)
         elif self.state == self.LOST:
@@ -642,9 +664,11 @@ class Tracker:
         pipelined hot path.  Returns the committed pose or None."""
         if self._pending is None:
             return None
-        frame_id, out, frame, ref_at_dispatch, fetch = self._pending
+        frame_id, out, frame, plane_det, cuboid_det, ref_at_dispatch, fetch = self._pending
         self._pending = None
         scalars_np, T_np, T_ref_np = fetch.get()
+        self._pending_plane_det = plane_det
+        self._pending_cuboid_det = cuboid_det
         return self._commit(frame_id, out, frame, ref_at_dispatch, scalars_np, T_np, T_ref_np,
                             pipelined=True)
 
@@ -713,6 +737,9 @@ class Tracker:
         self.state = self.NOT_INITIALIZED
         self.n_kf = 0
         self.n_pt = 0
+        self.n_plane = 0
+        self.n_cub = 0
+        self._metric_anchored = False
         self._free_slots = np.empty(0, np.int64)
         self._alloc_pending = None
         self._pt_valid_snap = None
@@ -822,9 +849,79 @@ class Tracker:
         self._kf_fids.append(frame_id)
         self._kf_slot_fid[slot] = frame_id
         self._lap(t, "kf", "add")
+        self._semantic_step(slot, kp_pt)
+        self._lap(t, "kf", "semantic")
         self._local_mapping_step(slot, frame_id)
         self._lap(t, "kf", "mapping")
         self.last_kp_pt = self.map.kf_pt[slot]
+
+    def _fetch(self, tensors):
+        """Read device tensors in one pinned copy behind one CUDA event."""
+        return self._copy_to_host(tensors).get()
+
+    def _semantic_step(self, kf_slot: int, kp_pt):
+        """DetectPlane / AssociatePlanes and DetectCuboid / AssociateCuboids
+        at keyframe creation (Tracking.cc:1313-1334), after the metric
+        rescale: metric measurements must land in a metric map."""
+        fl = self.cfg.flags
+        pdet, cdet = self._pending_plane_det, self._pending_cuboid_det
+        if fl.enable_ground_height_scale and pdet is not None:
+            self._update_metric_scale(kf_slot, pdet)
+        if fl.detect_plane and pdet is not None:
+            self.map, self.n_plane = sa.associate_planes(self.map, kf_slot, pdet, self.n_plane, fetch=self._fetch)
+        if fl.detect_object and cdet is not None and self.n_kf > 2:
+            # the reference skips objects in the first two keyframes (Tracking.cc:2102-2107)
+            self.map, self.n_cub = sa.associate_cuboids(self.map, kf_slot, cdet, kp_pt, self.n_cub, self.cfg,
+                                                        fetch=self._fetch)
+        self._pending_plane_det = self._pending_cuboid_det = None
+
+    def _update_metric_scale(self, kf_slot: int, plane_det):
+        """Rescale the mono map onto metric scale from this keyframe's metric
+        plane detections, the analogue of the reference's ground-height
+        rescale (Tracking.cc:1335-1393).  Each (tracked point, detected
+        plane) pair votes s = d_meas / (-n . p_cam); the mode of a log
+        histogram and the median around it pick s (tracking.py:1392-1458 of
+        the reference, whose comments record its A/B of the anchor policy).
+
+        The next frame's program is already in flight on the old map and
+        the old pose when the map is rescaled here, and nothing corrects it:
+        the reference has no guard for the pipeline either (ROADMAP section
+        3).  The fault is mirrored."""
+        tc = self.cfg.tracking
+        pvalid = np.asarray(plane_det.valid)
+        if int(pvalid.sum()) < 1:
+            return
+        coefs = np.asarray(plane_det.coef)  # (L, 4) camera frame, metric
+        bound, pc = self._fetch(_metric_scale_inputs(self.map, kf_slot))
+        if int(bound.sum()) < 30:
+            return
+        n, d_meas = coefs[:, :3], coefs[:, 3]
+        denom = -(pc @ n.T)  # (N, L) map-scale point-plane depth along the normal
+        good = (bound[:, None] & pvalid[None, :] & (denom > tc.rescale_min_plane_dist)
+                & (d_meas[None, :] > tc.rescale_min_plane_dist))
+        s_cand = d_meas[None, :] / np.maximum(denom, 1e-6)
+        logs = np.log(np.clip(s_cand[good], 1e-3, 1e3))
+        if logs.size < 30:
+            return
+        hist, edges = np.histogram(logs, bins=np.linspace(-2.2, 2.2, 89))
+        peak = int(np.argmax(hist))
+        if hist[peak] < max(30, 0.1 * logs.size):
+            return
+        lo, hi = edges[max(peak - 1, 0)], edges[min(peak + 2, len(edges) - 1)]
+        s = float(np.exp(np.median(logs[(logs >= lo) & (logs <= hi)])))
+        # after the first anchor the map is metric: only small corrections
+        s_lo, s_hi = (tc.rescale_min, tc.rescale_max) if self._metric_anchored else (0.15, 8.0)
+        if s_lo < s < s_hi and abs(s - 1.0) > 0.005:
+            self.map = ms.rescale_map(self.map, s)
+            # the keyframe's pose is T_cur (both are this frame's optimized
+            # pose); scaled here as on the device, without reading it back
+            self.T_cur = np.array(self.T_cur)
+            self.T_cur[:3, 3] *= np.float32(s)
+            self.velocity = np.array(self.velocity)
+            self.velocity[:3, 3] *= s
+            self._metric_anchored = True
+            self.n_rescales += 1
+            self.dbg["metric_s"] = round(s, 4)
 
     def _local_mapping_step(self, kf_slot: int, frame_id: int = -1):
         """LocalMapping::Run for one keyframe (LocalMapping.cc:49-145): cull
@@ -850,7 +947,7 @@ class Tracker:
         self.map = ms.update_point_stats(self.map)
         self._lap(t, "map", "fuse")
         if self.n_kf > 2:
-            self.map, _ = run_local_ba(self.map, kf_slot, self.cam, cfg)
+            self.map, _ = run_local_ba(self.map, kf_slot, self.cam, cfg, stats=self.ba_factors)
         self._lap(t, "map", "ba")
         if self.n_kf > 3:
             self.map, _ = ms.cull_keyframes_sequential(

@@ -12,7 +12,12 @@ operation by operation in float32: primitives are tested in the oracle's
 order with its strict ``<`` (the earlier primitive keeps a tie), the 3-term
 products are written out elementwise, and the texture hash, which the oracle
 computes in int64, is int64 here too with the same masks.  TF32 stays off.
-``write_sequence`` (PNG output) is not ported: it needs ``cv2``.
+``write_sequence`` (PNG output) is not ported: it needs ``cv2``.  Its
+offline detections are: the renderer counts each frame's pixels per
+primitive and sums the camera-frame points of each room face in the pass
+that makes the frame, and :func:`frame_detections` turns those small arrays
+into the plane and cuboid rows ``write_sequence`` writes, through the same
+text rounding and parsing.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from ..semantic.detect import cuboids_from_lines, parse_obj_lines, planes_from_rows
 
 # (classname, cx, cy, yaw, sx, sy, sz): half-extents; cz = sz (on the floor)
 _DEFAULT_CUBOIDS: List[Tuple[str, float, float, float, float, float, float]] = [
@@ -159,7 +166,10 @@ class BatchRenderer(torch.nn.Module):
         buf("cell_fine", np.array([spec.cell_fine], np.float32))
         buf("hash_denom", np.array([65535.0], np.float32))
 
-    def forward(self, poses_wc):
+    def forward(self, poses_wc, stats: bool = False):
+        """(gray, depth, prim_id); with ``stats`` also (counts (B, 6 + M)
+        int64 pixels per primitive, face_sums (B, 6, 3) float64 sums of the
+        camera-frame points ``depth * d_cam`` over each room face)."""
         spec = self.spec
         B = poses_wc.shape[0]
         H, W = self.cam.height, self.cam.width
@@ -207,19 +217,96 @@ class BatchRenderer(torch.nn.Module):
         zero = torch.zeros_like(best_id)
         albedo = 0.75 + 0.25 * _hash_cells(best_id, zero, zero, spec.seed + 999 + zero, den)
         gray = 20.0 + 215.0 * torch.clamp(gray * albedo, 0.0, 1.0)
-        return gray.reshape(B, H, W), best_t.reshape(B, H, W), best_id.reshape(B, H, W)
+        out = gray.reshape(B, H, W), best_t.reshape(B, H, W), best_id.reshape(B, H, W)
+        if not stats:
+            return out
+        n_prim = 6 + self.rz.shape[0]
+        bins = torch.where(best_id >= 0, best_id, n_prim) + (n_prim + 1) * torch.arange(B, device=d_w.device)[:, None]
+        counts = torch.zeros(B * (n_prim + 1), dtype=torch.int64, device=d_w.device).index_add_(
+            0, bins.reshape(-1), torch.ones(bins.numel(), dtype=torch.int64, device=d_w.device))
+        p_cam = (best_t[..., None] * self.d_cam[None]).to(torch.float64)  # as write_sequence's depth * d_cam
+        face = torch.where(best_id < 6, best_id, 6) + 7 * torch.arange(B, device=d_w.device)[:, None]
+        sums = torch.zeros((B * 7, 3), dtype=torch.float64, device=d_w.device).index_add_(
+            0, face.reshape(-1), p_cam.reshape(-1, 3))
+        return (*out, counts.reshape(B, n_prim + 1)[:, :n_prim], sums.reshape(B, 7, 3)[:, :6])
 
 
 def make_batch_renderer(cam: CameraSpec, spec: SceneSpec, device="cuda:0") -> BatchRenderer:
     return BatchRenderer(cam, spec, device)
 
 
-def render_uint8(renderer: BatchRenderer, poses_wc, chunk: int = 8):
+def render_uint8(renderer: BatchRenderer, poses_wc, chunk: int = 8, stats: bool = False):
     """(F, H, W) uint8 frames of ``poses_wc`` (F, 4, 4) numpy, truncated as
-    ``write_sequence`` stores its PNGs; rendered ``chunk`` poses at a time."""
+    ``write_sequence`` stores its PNGs; rendered ``chunk`` poses at a time.
+    With ``stats`` also the renderer's counts and face sums, as host numpy."""
     dev = renderer.d_cam.device
-    out = []
+    out, counts, sums = [], [], []
     for i in range(0, len(poses_wc), chunk):
-        g = renderer(torch.as_tensor(np.asarray(poses_wc[i:i + chunk], np.float32), device=dev))[0]
-        out.append(g.to(torch.uint8))
-    return torch.cat(out)
+        r = renderer(torch.as_tensor(np.asarray(poses_wc[i:i + chunk], np.float32), device=dev), stats=stats)
+        out.append(r[0].to(torch.uint8))
+        if stats:
+            counts.append(r[3])
+            sums.append(r[4])
+    if not stats:
+        return torch.cat(out)
+    return torch.cat(out), torch.cat(counts).cpu().numpy(), torch.cat(sums).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Offline detections (write_sequence's plane_seg / pred_3d_obj_matched_txt)
+# ---------------------------------------------------------------------------
+
+
+def plane_rows_for_frame(T_wc, counts, face_sums, spec: SceneSpec, min_pix: int = 1500):
+    """Offline plane rows [id n_cam d_cam centroid_cam num] of the room faces
+    with at least ``min_pix`` pixels in this frame (the reference's
+    ``_plane_rows_for_frame``, from the renderer's counts and face sums).
+    The normal and distance are the reference's float32 numpy expressions on
+    the frame's float32 pose; the centroid is the float64 sum over the
+    face's pixels divided by their count (the reference's is a float32 numpy
+    mean; nothing downstream reads it)."""
+    R, t = T_wc[:3, :3], T_wc[:3, 3]
+    R_cw = R.T
+    t_cw = -R_cw @ t
+    rows = []
+    for i, pl in enumerate(room_planes(spec)):
+        num = int(counts[i])
+        if num < min_pix:
+            continue
+        n_c = R_cw @ pl[:3]
+        d_c = float(pl[3] - t_cw @ n_c)
+        if d_c < 0:
+            n_c, d_c = -n_c, -d_c
+        cen = face_sums[i] / num
+        rows.append([float(len(rows)), *n_c.tolist(), d_c, *cen.tolist(), float(num)])
+    return rows
+
+
+def cuboid_lines_for_frame(T_wc, counts, spec: SceneSpec, min_pix: int = 400):
+    """Global-frame cuboid rows of the objects with at least ``min_pix``
+    pixels whose centre is at least 1 m from the camera (the reference's
+    ``_cuboid_lines_for_frame``)."""
+    lines = []
+    for i, (name, cx, cy, yaw, sx, sy, sz) in enumerate(spec.cuboids):
+        dist = np.linalg.norm(np.array([cx, cy, sz]) - T_wc[:3, 3])
+        if counts[6 + i] < min_pix or dist < 1.0:
+            continue
+        lines.append(f"{name} {cx:.6f} {cy:.6f} {sz:.6f} 0 0 {yaw:.6f} {sx:.6f} {sy:.6f} {sz:.6f}")
+    return lines
+
+
+def camera_matrix_np(cam: CameraSpec):
+    return np.array([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]], np.float32)
+
+
+def frame_detections(T_wc, counts, face_sums, spec: SceneSpec, cam: CameraSpec, max_planes: int,
+                     max_cuboids: int):
+    """(PlaneDetections, CuboidDetections) of one frame, as ``mono_icl``
+    reads them from ``write_sequence``'s files: plane rows formatted with
+    %.9f and cuboid rows with %.6f, parsed back, then cast to float32, and
+    the cuboids taken into the camera frame with ``T_wc``, the frame's
+    camera-to-world pose."""
+    rows = plane_rows_for_frame(T_wc, counts, face_sums, spec)
+    pdet = planes_from_rows([[float(f"{x:.9f}") for x in r] for r in rows], max_planes)
+    names, vals = parse_obj_lines(cuboid_lines_for_frame(T_wc, counts, spec))
+    return pdet, cuboids_from_lines(names, vals, T_wc, camera_matrix_np(cam), max_cuboids)

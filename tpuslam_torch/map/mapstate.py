@@ -429,6 +429,28 @@ def cull_keyframes_sequential(m: MapState, center_kf: int, redundancy_th: float,
     return m, n
 
 
+def rescale_map(m: MapState, s: float) -> MapState:
+    """Multiply every world-unit quantity by ``s``: the analogue of the
+    reference's ground-height map rescaling (Tracking.cc:1335-1393), with the
+    scale taken from metric plane measurements
+    (``frontend/tracking.py:Tracker._update_metric_scale``).  ``s`` is
+    rounded to float32 first, as the reference's ``jnp.float32(s)``."""
+    s = float(np.float32(s))
+
+    def scaled_t(T):
+        T = T.clone()
+        T[..., :3, 3] *= s
+        return T
+
+    plane_coef = m.plane_coef.clone()
+    plane_coef[:, 3] *= s
+    return m.replace(
+        kf_pose=scaled_t(m.kf_pose), pt_pos=m.pt_pos * s, plane_coef=plane_coef,
+        cub_pose=scaled_t(m.cub_pose), cub_scale=m.cub_scale * s,
+        pt_min_dist=m.pt_min_dist * s, pt_max_dist=m.pt_max_dist * s,
+    )
+
+
 def keypoint_of_point(m: MapState):
     """(K, P) int32: the keypoint of keyframe k observing point p, -1 when k
     does not observe p (the inverse of ``kf_pt``; where two keypoints of one
