@@ -25,11 +25,13 @@ In order, it
      equal;
   5. runs the 64-frame tracking slice (``tpuslam_torch.workload``) at full
      width: 480x640 frames, 1024 features, a map of 512 keyframes and 32768
-     points, 4096 local points.  Gates: no host sync in a pass, median final
-     inliers 453.5 and final camera x 1.8884 m (the slice's known outcome,
-     which exact kernels must not move), every frame finite, each kernel
-     launched exactly once per frame; and a 4-frame 240x320 run on the card
-     must agree with the same run on the CPU (plain versions);
+     points, 4096 local points.  A 4-frame 240x320 run on the card first
+     warms the libraries up and must agree with the same run on the CPU
+     (plain versions); then one full pass counts the host syncs and one is
+     timed.  Gates: no host sync in a pass, median final inliers 453.5 and
+     final camera x 1.8884 m (the slice's known outcome, which exact kernels
+     must not move), every frame finite, each kernel launched exactly once
+     per frame;
   6. runs the port's ``Tracker`` (``tpuslam_torch.apps.golden``) over the
      first 48 frames of the golden sequence at 320x240 (fx = fy = 260, 512
      features, the capacities of ``tests/test_long_replay.py``, loops off)
@@ -41,7 +43,7 @@ In order, it
      rotation within ``SMALL_ANGLE_TOL``, and the initialization
      keyframe's rotation within ``SMALL_INIT_ANGLE_TOL``
      (``replay_agreement``);
-  7. renders the first 200 frames of the golden sequence at full width on
+  7. renders the first 100 frames of the golden sequence at full width on
      the card, requires them equal to the CPU's render on every pixel, and
      replays them (640x480, 1024 features, default capacities, loops off)
      through ``run_loop`` and ``Tracker`` and prints a ``golden`` line: frames
@@ -50,10 +52,10 @@ In order, it
      keyframe and initialization frame with their sources.  Gates: the
      first tracked frame below 40, tracked >= 0.9 x the frames after
      initialization, raw ATE <= 1.5 x the JAX package's + 0.01 m, keyframes
-     created within 0.7-1.3 x the JAX package's (``JAX_GOLDEN_200``);
-  8. the flagship: renders the same 200 frames on the card again with the
-     renderer's per-primitive pixel counts and face sums (the frames must
-     equal phase 7's), builds each frame's offline plane and cuboid
+     created within 0.7-1.3 x the JAX package's (``JAX_GOLDEN_100``);
+  8. the flagship: renders the first 200 frames on the card again with the
+     renderer's per-primitive pixel counts and face sums (the first 100
+     must equal phase 7's), builds each frame's offline plane and cuboid
      detections from them, and replays them through ``run_loop`` and the
      ``Tracker`` with the flags of ``mono_icl --planes --objects`` on the
      golden ``ICL.yaml`` (loops off), then prints a ``flagship`` line
@@ -64,12 +66,36 @@ In order, it
      planes and cuboids each >= 1 and within +-2, at least one rescale,
      plane and bbox factors live in BA, raw ATE <= 1.5 x + 0.01 m; and K1
      and K2 held to their plain versions at this replay's shapes;
-  9. prints each phase's seconds, the slice's frames/s and each kernel's
-     device time (launches queued behind a spin, ``kernels/timing.py``)
-     beside its bound and its plain version's host-paced time, then one
-     JSON line of kernels (launches summed over the four paths that run
-     on the card: the slice, the card's small replay, the golden replay
-     and the flagship), the card line, and the result.
+  9. RGB-D: renders the first 200 golden frames on the card with their
+     depth (quantized as the golden depth PNGs) and the per-primitive
+     counts (the first 100 frames must equal phase 7's), and replays them
+     with the flags of ``rgbd_icl --planes online --objects`` (planes
+     segmented on every frame), then prints an ``rgbd`` line (phase 8's
+     keys plus the valid stereo factors over the local BAs and the online
+     plane detections).  Gates against ``JAX_RGBD_200``: first tracked frame
+     <= 1, tracked >= 0.9 x the JAX run's, keyframes created within
+     0.7-1.3 x, metric raw ATE (no scale) <= 1.5 x + 0.01 m, map planes
+     >= 1 and within 2, stereo factors and online planes > 0; K1 and K2 at
+     this replay's shapes; and ``segment_planes`` on frame 0's depth on the
+     card and on the CPU: the same ``valid``, the valid planes' inlier
+     counts within 0.5% and coefficients within ``PLANE_COEF_TOL``;
+ 10. stereo: renders the first 100 golden frames' right views (the camera
+     moved 0.075 m along its +x axis; the left views must equal phase 7's)
+     and replays the pairs through ``process_stereo_pair``, points only,
+     then prints a ``stereo`` line (with the median count of left keypoints
+     with a stereo match per frame).  Gates against ``JAX_STEREO_100``: the
+     tracking, ATE and keyframe gates of phase 9, and the stereo matches
+     within 10% of the JAX run's; ``compute_stereo_matches`` on frame 0 on
+     the card and on the CPU (the card's features): ``ok`` equal and ``ur``
+     within 1e-3 px; K1 at both views' shapes and K2 at this replay's;
+ 11. prints each phase's seconds, the slice's frames/s, the device ms of
+     plane segmentation and of stereo matching per frame (CUDA events
+     around one call), each kernel's device time (launches queued behind a
+     spin, ``kernels/timing.py``) beside its bound and its plain version's
+     host-paced time, then one JSON line of kernels (launches summed over
+     the six paths that run on the card: the slice, the card's small
+     replay, the golden, flagship, RGB-D and stereo replays), the card
+     line, and the result.
 
 It imports nothing of JAX.  Any failed phase raises, and the script exits
 non-zero without printing the result line.
@@ -101,24 +127,39 @@ def card_line() -> str:
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 INT8_OPS_PER_MS = 1979e12 / 1e3
 
-# The JAX package's own CPU run of the golden replay, first 200 frames, the
-# configuration of phase 7 (PERF.md section 6, "the JAX package's CPU
-# reference"; made by jax_golden_reference.py --frames 200)
-JAX_GOLDEN_200 = {
-    "first_tracked": 4, "tracked": 196, "keyframes_created": 40, "keyframes_live": 12,
-    "points": 1139, "ate_raw_m": 0.013183368499423994, "ate_m": 0.02813167803444424,
-    "kf_ate_m": 0.018481896093696035,
+# The JAX package's own CPU runs of the golden replays, the configurations of
+# phases 7-10 (PERF.md section 6, "the JAX package's CPU references"; made by
+# jax_golden_reference.py with --frames 100, --frames 200 --flagship,
+# --frames 200 --rgbd and --frames 100 --stereo)
+JAX_GOLDEN_100 = {
+    "first_tracked": 4, "tracked": 96, "keyframes_created": 21, "keyframes_live": 9, "points": 949,
+    "ate_raw_m": 0.013295897094951907, "ate_m": 0.01699286245898957, "kf_ate_m": 0.0035375663362657087,
 }
-# The JAX package's own CPU run of the flagship (mono_icl --planes
-# --objects, loops off), first 200 frames, the configuration of phase 8
-# (PERF.md section 6; made by jax_golden_reference.py --frames 200 --flagship)
 JAX_FLAGSHIP_200 = {
     "first_tracked": 4, "tracked": 196, "keyframes_created": 40, "keyframes_live": 11, "points": 937,
     "planes": 4, "cuboids": 2, "rescales": 35, "ba_plane_factors": 745, "ba_bbox_factors": 27,
     "ate_raw_m": 0.05880955257317187, "ate_m": 0.07443938331379683, "kf_ate_m": 0.08390803846630975,
 }
-GOLDEN_FRAMES = 200
+JAX_RGBD_200 = {
+    "first_tracked": 0, "tracked": 200, "keyframes_created": 10, "keyframes_live": 10, "points": 1380,
+    "planes": 9, "cuboids": 3, "ba_plane_factors": 170, "ba_bbox_factors": 0, "stereo_factors": 19023,
+    "online_planes": 996, "ate_raw_m": 0.006306639864188983, "ate_m": 0.006793023547176333,
+    "kf_ate_m": 0.004844278370731199,
+}
+JAX_STEREO_100 = {
+    "first_tracked": 0, "tracked": 100, "keyframes_created": 6, "keyframes_live": 6, "points": 937,
+    "stereo_factors": 6159, "stereo_matches": 705.0, "ate_raw_m": 0.010202375757706954,
+    "ate_m": 0.008088339732164902, "kf_ate_m": 0.006046864757868631,
+}
+GOLDEN_FRAMES = 100
+FLAGSHIP_FRAMES = 200
+RGBD_FRAMES = 200
+STEREO_FRAMES = 100
 SMALL_FRAMES = 48
+# segment_planes, card against CPU on one frame's depth: the valid planes'
+# coefficients (unit normal and distance in metres); float sums of ~34k
+# points in another order (1.3e-5 on the H100)
+PLANE_COEF_TOL = 1e-3
 # card vs CPU, 48 frames, up to the first keyframe decision that differs
 # (PERF.md section 6, "card vs CPU limits"): camera centres after Sim3
 # alignment, in the CPU run's map units, and rotation angles in radians, at
@@ -238,13 +279,14 @@ def card_vs_cpu_replay(golden, dev):
     card's render must equal the CPU's on every pixel; both trackers get
     the CPU's frames."""
     cspec, _ = golden.golden_setup(small=True)
-    fg, _ = golden.render_golden(SMALL_FRAMES, cspec, dev)
-    frames, gt = golden.render_golden(SMALL_FRAMES, cspec, "cpu")
+    fg = golden.render_golden(SMALL_FRAMES, cspec, dev).frames
+    rendered = golden.render_golden(SMALL_FRAMES, cspec, "cpu")
+    frames = rendered.frames
     n_px = int((fg != frames).sum())
     check(n_px == 0, f"small replay frames: the card's and the CPU's renders differ on {n_px} of "
           f"{frames.numel()} pixels")
-    rep_g, tr_g = golden.run_golden(SMALL_FRAMES, dev, small=True, rendered=(frames, gt))
-    rep_c, tr_c = golden.run_golden(SMALL_FRAMES, "cpu", small=True, rendered=(frames, gt))
+    rep_g, tr_g = golden.run_golden(SMALL_FRAMES, dev, small=True, rendered=rendered)
+    rep_c, tr_c = golden.run_golden(SMALL_FRAMES, "cpu", small=True, rendered=rendered)
     print(f"small replay keyframes: card {rep_g['kf_frame_ids']}, CPU {rep_c['kf_frame_ids']}", flush=True)
     dec_g = {f: (d, made) for f, d, made in tr_g.kf_decisions}
     dec_c = {f: (d, made) for f, d, made in tr_c.kf_decisions}
@@ -291,18 +333,19 @@ def replay_agreement(traj_a, traj_b, limit):
 
 
 def golden_replay(golden, dev):
-    """Phase 7: the first 200 golden frames at full width, rendered on the
+    """Phase 7: the first 100 golden frames at full width, rendered on the
     card and held to the CPU's render on every pixel; returns the report
     line, the tracker and the frames."""
     cspec, _ = golden.golden_setup()
-    frames, gt = golden.render_golden(GOLDEN_FRAMES, cspec, dev)
-    n_px = int((frames != golden.render_golden(GOLDEN_FRAMES, cspec, "cpu")[0]).sum())
+    rendered = golden.render_golden(GOLDEN_FRAMES, cspec, dev)
+    frames = rendered.frames
+    n_px = int((frames != golden.render_golden(GOLDEN_FRAMES, cspec, "cpu").frames).sum())
     check(n_px == 0, f"golden frames: the card's and the CPU's renders differ on {n_px} of {frames.numel()} pixels")
-    rep, tr = golden.run_golden(GOLDEN_FRAMES, dev, count_waits=True, rendered=(frames, gt))
+    rep, tr = golden.run_golden(GOLDEN_FRAMES, dev, count_waits=True, rendered=rendered)
     line = {k: rep.get(k) for k in GOLDEN_KEYS}
     line.update(wait_summary(tr))
     print("golden " + json.dumps(line), flush=True)
-    replay_gates("golden", rep, JAX_GOLDEN_200)
+    replay_gates("golden", rep, JAX_GOLDEN_100, GOLDEN_FRAMES)
     return line, tr, frames
 
 
@@ -323,12 +366,21 @@ def wait_summary(tr):
     return line
 
 
-def replay_gates(name, rep, ref):
-    """The gates phases 7 and 8 share, against the JAX package's CPU run."""
+def replay_gates(name, rep, ref, n_frames, depth=False):
+    """The gates the replays share, against the JAX package's CPU run.  Mono:
+    the first tracked frame below 40 and 0.9 x the frames after it tracked;
+    a depth sensor initializes on one frame: the first tracked frame <= 1
+    and 0.9 x the JAX run's tracked frames.  The ATE is the report's, Sim3
+    for mono and without scale for the metric depth sensors."""
     first = rep["first_tracked"]
-    check(first is not None and first < 40, f"{name}: first tracked frame {first} < 40")
-    check(rep["tracked"] >= 0.9 * (GOLDEN_FRAMES - first),
-          f"{name}: tracked {rep['tracked']} >= 0.9 x {GOLDEN_FRAMES - first} frames after initialization")
+    if depth:
+        check(first is not None and first <= 1, f"{name}: first tracked frame {first} <= 1")
+        check(rep["tracked"] >= 0.9 * ref["tracked"],
+              f"{name}: tracked {rep['tracked']} >= 0.9 x the JAX package's {ref['tracked']}")
+    else:
+        check(first is not None and first < 40, f"{name}: first tracked frame {first} < 40")
+        check(rep["tracked"] >= 0.9 * (n_frames - first),
+              f"{name}: tracked {rep['tracked']} >= 0.9 x {n_frames - first} frames after initialization")
     lim = 1.5 * ref["ate_raw_m"] + 0.01
     check(rep["ate_rmse_raw_m"] <= lim, f"{name}: raw ATE {rep['ate_rmse_raw_m']:.4f} m <= {lim:.4f} m "
           f"(JAX package {ref['ate_raw_m']:.4f} m)")
@@ -336,25 +388,40 @@ def replay_gates(name, rep, ref):
     check(0.7 * n_ref <= n <= 1.3 * n_ref, f"{name}: {n} keyframes created, JAX package {n_ref}")
 
 
+def event_ms(fn, reps: int = 10) -> float:
+    """Median device ms of ``fn`` between CUDA events recorded around one
+    call (host waits inside the call included)."""
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
 def flagship_replay(golden, dev, golden_frames):
     """Phase 8: the flagship over the first 200 golden frames at full width.
-    The card renders them again with the per-primitive counts; the frames
-    must equal phase 7's.  Returns the report line and the tracker."""
+    The card renders them again with the per-primitive counts; the first
+    100 must equal phase 7's.  Returns the report line and the tracker."""
     cspec, cfg = golden.golden_setup(flagship=True)
-    rendered = golden.render_golden(GOLDEN_FRAMES, cspec, dev, cfg)
-    n_px = int((rendered[0] != golden_frames).sum())
-    check(n_px == 0, f"flagship frames: equal to phase 7's ({n_px} pixels differ)")
-    n_pdet = sum(int(p.valid.sum()) for p, _ in rendered[2])
-    n_cdet = sum(int(c.valid.sum()) for _, c in rendered[2])
-    print(f"flagship detections: {n_pdet} planes and {n_cdet} cuboids over {GOLDEN_FRAMES} frames", flush=True)
-    rep, tr = golden.run_golden(GOLDEN_FRAMES, dev, count_waits=True, rendered=rendered, flagship=True)
+    rendered = golden.render_golden(FLAGSHIP_FRAMES, cspec, dev, cfg)
+    n = golden_frames.shape[0]
+    n_px = int((rendered.frames[:n] != golden_frames).sum())
+    check(n_px == 0, f"flagship frames: the first {n} equal to phase 7's ({n_px} pixels differ)")
+    n_pdet = sum(int(p.valid.sum()) for p, _ in rendered.dets)
+    n_cdet = sum(int(c.valid.sum()) for _, c in rendered.dets)
+    print(f"flagship detections: {n_pdet} planes and {n_cdet} cuboids over {FLAGSHIP_FRAMES} frames", flush=True)
+    rep, tr = golden.run_golden(FLAGSHIP_FRAMES, dev, count_waits=True, rendered=rendered, flagship=True)
     line = {k: rep.get(k) for k in GOLDEN_KEYS + ("planes", "cuboids", "rescales", "ba_mono_factors",
                                                   "ba_plane_obs_factors", "ba_cub_bbox_factors")}
     line["rescale_fired"] = rep["rescales"] > 0
     line.update(wait_summary(tr))
     print("flagship " + json.dumps(line), flush=True)
     ref = JAX_FLAGSHIP_200
-    replay_gates("flagship", rep, ref)
+    replay_gates("flagship", rep, ref, FLAGSHIP_FRAMES)
     for key in ("planes", "cuboids"):
         n, n_ref = rep[key], ref[key]
         check(n >= 1 and abs(n - n_ref) <= 2, f"flagship: {n} {key}, JAX package {n_ref} (>= 1, within 2)")
@@ -364,6 +431,89 @@ def flagship_replay(golden, dev, golden_frames):
         check(rep.get(key, 0) > 0, f"flagship: {rep.get(key, 0)} valid {key[3:-8]} factors over the local BAs "
               f"(JAX package {ref[ref_key]})")
     return line, tr
+
+
+SEMANTIC_KEYS = ("planes", "cuboids", "ba_mono_factors", "ba_plane_obs_factors", "ba_cub_bbox_factors")
+
+
+def rgbd_replay(golden, dev, golden_frames, read_launches):
+    """Phase 9: RGB-D, 200 golden frames at full width with online planes and
+    objects.  Returns the report line, the tracker, the kernels' launches in
+    the replay (``read_launches()`` just after it), the rendered frames and
+    the device ms of ``segment_planes`` on frame 0's depth."""
+    from tpuslam_torch.kernels.planes import segment_planes
+
+    cspec, cfg = golden.golden_setup(rgbd=True)
+    rendered = golden.render_golden(RGBD_FRAMES, cspec, dev, cfg, depth=True)
+    n = golden_frames.shape[0]
+    n_px = int((rendered.frames[:n] != golden_frames).sum())
+    check(n_px == 0, f"rgbd frames: the first {n} equal to phase 7's ({n_px} pixels differ)")
+    rep, tr = golden.run_golden(RGBD_FRAMES, dev, count_waits=True, rendered=rendered, rgbd=True)
+    launches = read_launches()
+    line = {k: rep.get(k) for k in GOLDEN_KEYS + SEMANTIC_KEYS + ("stereo_factors", "online_planes")}
+    line.update(wait_summary(tr))
+    print("rgbd " + json.dumps(line), flush=True)
+    ref = JAX_RGBD_200
+    replay_gates("rgbd", rep, ref, RGBD_FRAMES, depth=True)
+    n, n_ref = rep["planes"], ref["planes"]
+    check(n >= 1 and abs(n - n_ref) <= 2, f"rgbd: {n} map planes, JAX package {n_ref} (>= 1, within 2)")
+    for key in ("stereo_factors", "online_planes"):
+        check(rep[key] > 0, f"rgbd: {rep[key]} {key.replace('_', ' ')} (JAX package {ref[key]})")
+
+    # segment_planes on frame 0's depth, the card against the CPU
+    depth = rendered.depth[0].to(dev)
+    intr = (cspec.fx, cspec.fy, cspec.cx, cspec.cy)
+    cap = cfg.caps.max_planes_per_frame
+    coef_g, _, cnt_g, valid_g = (x.cpu() for x in segment_planes(depth, *intr, max_planes=cap))
+    coef_c, _, cnt_c, valid_c = segment_planes(depth.cpu(), *intr, max_planes=cap)
+    check(torch.equal(valid_g, valid_c) and int(valid_c.sum()) >= 1,
+          f"segment_planes card vs CPU: the same {int(valid_c.sum())} valid planes")
+    dc = (cnt_g - cnt_c).abs()[valid_c].double() / cnt_c[valid_c].double()
+    check(float(dc.max()) <= 5e-3, f"segment_planes card vs CPU: inlier counts within 0.5% ({float(dc.max()):.2e})")
+    de = float((coef_g - coef_c).abs()[valid_c].max())
+    check(de <= PLANE_COEF_TOL, f"segment_planes card vs CPU: coefficients within {PLANE_COEF_TOL} ({de:.2e})")
+    seg_ms = event_ms(lambda: segment_planes(depth, *intr, max_planes=cap))
+    print(f"segment_planes: {seg_ms:.3f} ms per frame (CUDA events around one call)", flush=True)
+    return line, tr, launches, rendered, seg_ms
+
+
+def stereo_replay(golden, dev, golden_frames, read_launches):
+    """Phase 10: stereo, 100 golden pairs at full width, points only.
+    Returns the report line, the tracker, the kernels' launches in the
+    replay (the comparison below extracts features again), the rendered
+    pairs and the device ms of ``compute_stereo_matches`` on frame 0."""
+    from tpuslam_torch.kernels.stereo import compute_stereo_matches
+
+    cspec, _ = golden.golden_setup(stereo=True)
+    rendered = golden.render_golden(STEREO_FRAMES, cspec, dev, right=True)
+    n = min(golden_frames.shape[0], STEREO_FRAMES)
+    n_px = int((rendered.frames[:n] != golden_frames[:n]).sum())
+    check(n_px == 0, f"stereo left frames: equal to phase 7's ({n_px} pixels differ)")
+    rep, tr = golden.run_golden(STEREO_FRAMES, dev, count_waits=True, rendered=rendered, stereo=True)
+    launches = read_launches()
+    line = {k: rep.get(k) for k in GOLDEN_KEYS + ("stereo_factors", "stereo_matches")}
+    line.update(wait_summary(tr))
+    print("stereo " + json.dumps(line), flush=True)
+    ref = JAX_STEREO_100
+    replay_gates("stereo", rep, ref, STEREO_FRAMES, depth=True)
+    m, m_ref = rep["stereo_matches"], ref["stereo_matches"]
+    check(abs(m - m_ref) <= 0.1 * m_ref, f"stereo: a median {m} stereo matches per frame, JAX package {m_ref}")
+    check(rep["stereo_factors"] > 0, f"stereo: {rep['stereo_factors']} stereo factors over the local BAs")
+
+    # compute_stereo_matches on frame 0, the card against the CPU, on the card's features
+    gl, gr = (x[0].to(dev).to(torch.float32) for x in (rendered.frames, rendered.right))
+    fl, fr = tr.extractor(gl), tr.extractor(gr)
+    args = (fl.uv, fl.octave, fl.desc, fl.valid, fr.uv, fr.octave, fr.desc, fr.valid)
+    kw = dict(bf=tr.cam.bf, fx=tr.cam.fx)
+    ur_g, _, ok_g = (x.cpu() for x in compute_stereo_matches(gl, gr, *args, **kw))
+    ur_c, _, ok_c = compute_stereo_matches(gl.cpu(), gr.cpu(), *(a.cpu() for a in args), **kw)
+    check(torch.equal(ok_g, ok_c) and int(ok_c.sum()) > 100,
+          f"compute_stereo_matches card vs CPU: the same {int(ok_c.sum())} matches")
+    du = float((ur_g - ur_c).abs()[ok_c].max())
+    check(du <= 1e-3, f"compute_stereo_matches card vs CPU: ur within 1e-3 px ({du:.2e})")
+    match_ms = event_ms(lambda: compute_stereo_matches(gl, gr, *args, **kw))
+    print(f"compute_stereo_matches: {match_ms:.3f} ms per frame (CUDA events around one call)", flush=True)
+    return line, tr, launches, rendered, match_ms
 
 
 def random_descriptors(n, seed, device):
@@ -446,8 +596,15 @@ def main() -> int:
     t_phase = time.perf_counter()
 
     # --- 5. the slice ----------------------------------------------------------
-    # a warm-up pass, then a pass that counts the host syncs of the frame path
-    workload.run_slice(wl)
+    # the card against the CPU (plain versions) on a small input, which warms
+    # the libraries up; then a full pass that counts the host syncs
+    tg, sg = workload.run_slice(small)
+    tc, sc = workload.run_slice(workload.build_workload(torch.device("cpu"), **workload.SMALL))
+    dT = float((tg.cpu() - tc).abs().max())
+    nf_g, nf_c = sg[:, 3].cpu().double(), sc[:, 3].double()
+    check(dT < 1e-3, f"small slice: card vs CPU pose max |diff| {dT:.2e} < 1e-3")
+    check(bool(((nf_g - nf_c).abs() <= 0.02 * nf_c).all()),
+          f"small slice n_final card {sg[:, 3].tolist()} vs CPU {sc[:, 3].tolist()}")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
@@ -490,15 +647,6 @@ def main() -> int:
           f"final x {x_last:.4f} m == 1.8884 m")
     for name, n in launches.items():
         check(n == n_frames, f"{name} launched {n} times in the {n_frames}-frame slice")
-
-    # the card against the CPU (plain versions) on a small input
-    tg, sg = workload.run_slice(small)
-    tc, sc = workload.run_slice(workload.build_workload(torch.device("cpu"), **workload.SMALL))
-    dT = float((tg.cpu() - tc).abs().max())
-    nf_g, nf_c = sg[:, 3].cpu().double(), sc[:, 3].double()
-    check(dT < 1e-3, f"small slice: card vs CPU pose max |diff| {dT:.2e} < 1e-3")
-    check(bool(((nf_g - nf_c).abs() <= 0.02 * nf_c).all()),
-          f"small slice n_final card {sg[:, 3].tolist()} vs CPU {sc[:, 3].tolist()}")
     phase_s["slice"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
@@ -537,17 +685,46 @@ def main() -> int:
     flag, tr_flag = flagship_replay(golden, dev, gold_frames)
     launches_flag = read_launches()
     print(f"launches: flagship {launches_flag}", flush=True)
-    check(launches_flag["fast_nms"] == GOLDEN_FRAMES,
-          f"fast_nms launched {launches_flag['fast_nms']} times in {GOLDEN_FRAMES} flagship frames")
+    check(launches_flag["fast_nms"] == FLAGSHIP_FRAMES,
+          f"fast_nms launched {launches_flag['fast_nms']} times in {FLAGSHIP_FRAMES} flagship frames")
     check(launches_flag["hamming_top2"] >= flag["tracked"] - 1,
           f"hamming_top2 launched {launches_flag['hamming_top2']} times, once per hot-path frame")
     (pyr, dims), k2_in = tracker_kernel_cases(tr_flag, gold_frames[0])
     k1_err = max(k1_err, hold_k1({"flagship_frame0": (pyr, dims)}, cuda_fast, orb))
     k2_err = max(k2_err, hold_k2({"flagship_frame_vs_ref_kf": k2_in}, cuda_match))
     phase_s["flagship_replay"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # --- 9. RGB-D: online planes and objects ------------------------------------
+    reset_launches()
+    rgbd, tr_rgbd, launches_rgbd, rend_rgbd, seg_ms = rgbd_replay(golden, dev, gold_frames, read_launches)
+    print(f"launches: rgbd {launches_rgbd}", flush=True)
+    check(launches_rgbd["fast_nms"] == RGBD_FRAMES,
+          f"fast_nms launched {launches_rgbd['fast_nms']} times in {RGBD_FRAMES} RGB-D frames")
+    check(launches_rgbd["hamming_top2"] >= rgbd["tracked"] - 1,
+          f"hamming_top2 launched {launches_rgbd['hamming_top2']} times, once per hot-path frame")
+    (pyr, dims), k2_in = tracker_kernel_cases(tr_rgbd, rend_rgbd.frames[0])
+    k1_err = max(k1_err, hold_k1({"rgbd_frame0": (pyr, dims)}, cuda_fast, orb))
+    k2_err = max(k2_err, hold_k2({"rgbd_frame_vs_ref_kf": k2_in}, cuda_match))
+    phase_s["rgbd_replay"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # --- 10. stereo ---------------------------------------------------------------
+    reset_launches()
+    ster, tr_ster, launches_ster, rend_ster, match_ms = stereo_replay(golden, dev, gold_frames, read_launches)
+    print(f"launches: stereo {launches_ster}", flush=True)
+    check(launches_ster["fast_nms"] == 2 * STEREO_FRAMES,
+          f"fast_nms launched {launches_ster['fast_nms']} times for {STEREO_FRAMES} stereo pairs (both views)")
+    check(launches_ster["hamming_top2"] >= ster["tracked"] - 1,
+          f"hamming_top2 launched {launches_ster['hamming_top2']} times, once per tracked frame")
+    (pyr, dims), k2_in = tracker_kernel_cases(tr_ster, rend_ster.frames[0])
+    pyr_r = tr_ster.extractor.pyramid(rend_ster.right[0].to(dev).to(torch.float32))
+    k1_err = max(k1_err, hold_k1({"stereo_left0": (pyr, dims), "stereo_right0": (pyr_r, dims)}, cuda_fast, orb))
+    k2_err = max(k2_err, hold_k2({"stereo_frame_vs_ref_kf": k2_in}, cuda_match))
+    phase_s["stereo_replay"] = time.perf_counter() - t_phase
     print("phase seconds " + json.dumps(phase_s), flush=True)
 
-    # --- 9. report --------------------------------------------------------------
+    # --- 11. report -------------------------------------------------------------
     print(json.dumps({
         "slice_frames_per_s": fps, "slice_seconds": dt, "frames": n_frames,
         "median_n_final": float(np.median(n_final)), "final_x_m": x_last, "expected_x_m": x_expect,
@@ -556,11 +733,14 @@ def main() -> int:
         "small_replay_init_angle": small["init_angle"],
         "small_replay_raw_pose_max_diff": small["raw_max"], "small_replay_split_frame": small["split_frame"],
         "golden_frames_per_s": gold["frames_per_s"], "flagship_frames_per_s": flag["frames_per_s"],
-        "phase_s": phase_s,
+        "rgbd_frames_per_s": rgbd["frames_per_s"], "stereo_frames_per_s": ster["frames_per_s"],
+        "segment_planes_ms_per_frame": seg_ms, "stereo_matches_ms_per_frame": match_ms,
+        "phase_s": phase_s, "total_s": sum(phase_s.values()),
     }))
     kernels = [
         {"name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
-         "launches": launches[name] + launches_small[name] + launches_golden[name] + launches_flag[name],
+         "launches": sum(n[name] for n in (launches, launches_small, launches_golden, launches_flag,
+                                           launches_rgbd, launches_ster)),
          "max_abs_err": err, **k}
         for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
     ]

@@ -24,6 +24,23 @@ with the frame's float32 camera-to-world pose), as ``mono_icl`` reads them.
 The report adds the planes and cuboids made, how often the metric rescale
 fired, and the valid plane and bbox factors summed over the local BAs;
 ``chip_smoke.py``'s ``JAX_FLAGSHIP_200`` holds the one of ``--frames 200``.
+
+``--rgbd`` runs ``rgbd_icl --planes online --objects`` on the golden
+``ICL.yaml`` (loops off): each frame's depth is the renderer's, stored as
+``write_sequence`` stores its depth PNGs (``uint16(clip(depth * 5000))``)
+and read back as ``IclDataset`` reads them (``/ 5000`` in float32); planes
+are segmented online from it on every frame (``detect_planes_online``) and
+the cuboid rows are made and read as for ``--flagship``.  ``--stereo`` runs
+``stereo_kitti``'s configuration (points only) on the golden frames with a
+right view rendered at the camera moved 0.075 m (the ICL.yaml baseline)
+along its own +x axis, through ``Tracker.process_stereo_pair``.  Both
+report the trajectory error without scale (the maps are metric) and add
+``stereo_factors`` (valid stereo factors over the local BAs);
+``--rgbd`` adds ``online_planes`` (plane detections over the frames),
+``--stereo`` ``stereo_matches`` (the median per frame of left keypoints with
+a stereo match).  ``chip_smoke.py``'s ``JAX_RGBD_200`` and
+``JAX_STEREO_100`` hold the runs of ``--rgbd --frames 200`` and
+``--stereo --frames 100``.
 """
 
 from __future__ import annotations
@@ -47,36 +64,66 @@ from tpuslam.frontend.tracking import Tracker  # noqa: E402
 from tpuslam.io import synth  # noqa: E402
 from tpuslam.io.trajectory import ate_rmse  # noqa: E402
 from tpuslam.graph import lm as jlm  # noqa: E402
+from tpuslam.kernels import stereo as jks  # noqa: E402
 from tpuslam.map import mapstate as jms  # noqa: E402
-from tpuslam.semantic.detect import read_offline_cuboids, read_offline_planes  # noqa: E402
+from tpuslam.semantic.detect import detect_planes_online, read_offline_cuboids, read_offline_planes  # noqa: E402
 
 GOLDEN_FRAMES = 560
 GOLDEN_ANGLE_DEG = 400.0
+DEPTH_FACTOR = 5000.0  # write_sequence's depth PNG scale, IclDataset's depth_factor
+
+
+def right_poses(poses_wc, baseline: float):
+    """Camera-to-world poses of the right view: each camera moved by
+    ``baseline`` along its own +x axis, so that uL - uR = bf / Z."""
+    out = np.array(poses_wc, np.float32)
+    out[:, :3, 3] += np.float32(baseline) * out[:, :3, 0]
+    return out
 
 
 def render(n: int, cam: synth.CameraSpec, total: int = GOLDEN_FRAMES,
-           angle: float = GOLDEN_ANGLE_DEG, det_dir: str = ""):
-    """(uint8 frames, camera-to-world poses); with ``det_dir``, each frame's
-    plane and cuboid rows are written there as ``write_sequence`` writes them."""
+           angle: float = GOLDEN_ANGLE_DEG, det_dir: str = "", depth: bool = False, right: bool = False,
+           planes: bool = True):
+    """(uint8 frames, camera-to-world poses, depth or None, right frames or
+    None).  With ``det_dir``, each frame's cuboid rows (and with ``planes``
+    its plane rows) are written there as ``write_sequence`` writes them;
+    ``depth``: the depth maps as ``write_sequence`` stores and
+    ``IclDataset`` reads them; ``right``: the right view's uint8 frames."""
     spec = synth.SceneSpec()
     poses = synth.trajectory(total, spec, total_angle_deg=angle)[:n]
     r = synth.make_batch_renderer(cam, spec)
     u, v = np.meshgrid(np.arange(cam.width, dtype=np.float32), np.arange(cam.height, dtype=np.float32))
     d_cam = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, np.ones_like(u)], axis=-1)
-    out = []
+    out, depths, rights = [], [], []
+    poses_r = right_poses(poses, cam.baseline) if right else None
     for i in range(0, n, 8):
         g_b, t_b, id_b = (np.asarray(x) for x in r(poses[i:i + 8]))
         out.append(g_b.astype(np.uint8))
+        if depth:
+            d16 = np.clip(t_b * DEPTH_FACTOR, 0, 65535).astype(np.uint16)
+            depths.append(d16.astype(np.float32) / DEPTH_FACTOR)
+        if right:
+            rights.append(np.asarray(r(poses_r[i:i + 8])[0]).astype(np.uint8))
         for j in range(len(g_b)) if det_dir else ():
             f = i + j
             rows = synth._plane_rows_for_frame(poses[f], id_b[j], t_b[j][..., None] * d_cam, spec, 1500)
             with open(os.path.join(det_dir, f"{f}_offline_plane_multiplane.txt"), "w") as fh:
-                for row in rows:
+                for row in rows if planes else ():
                     fh.write(" ".join(f"{x:.9f}" for x in row) + "\n")
             lines = synth._cuboid_lines_for_frame(poses[f], id_b[j], spec, 400)
             with open(os.path.join(det_dir, f"{f:04d}_3d_cuboids.txt"), "w") as fh:
                 fh.write("\n".join(lines) + ("\n" if lines else ""))
-    return np.concatenate(out), poses
+    return (np.concatenate(out), poses, np.concatenate(depths) if depth else None,
+            np.concatenate(rights) if right else None)
+
+
+def rgbd_flags():
+    """``rgbd_icl --planes online --objects`` (tpuslam/apps/rgbd_icl.py:33-41),
+    loop closing off."""
+    return FeatureFlags(
+        detect_plane=True, read_offline_planetxt=False, detect_object=True, read_offline_cuboidtxt=True,
+        optimize_with_plane_3d=True, optimize_with_cuboid_2d=True, enable_loop_closing=False,
+    )
 
 
 def flagship_flags():
@@ -94,8 +141,11 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--small", action="store_true",
                     help="320x240, fx 260, 512 features, the capacities of tests/test_long_replay.py")
-    ap.add_argument("--flagship", action="store_true",
-                    help="mono_icl --planes --objects: offline plane and cuboid detections")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--flagship", action="store_true",
+                      help="mono_icl --planes --objects: offline plane and cuboid detections")
+    mode.add_argument("--rgbd", action="store_true", help="rgbd_icl --planes online --objects")
+    mode.add_argument("--stereo", action="store_true", help="stereo_kitti's configuration on a rendered pair")
     args = ap.parse_args(argv)
     if args.small:
         cspec = synth.CameraSpec(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
@@ -103,39 +153,58 @@ def main(argv=None):
         orb = OrbConfig(n_features=512)
     else:
         cspec, caps, orb = synth.CameraSpec(), Capacities(), OrbConfig()
-    flags = flagship_flags() if args.flagship else FeatureFlags(enable_loop_closing=False)
-    cfg = SlamConfig().replace(sensor="mono", caps=caps, orb=orb, flags=flags)
-    det_dir = tempfile.mkdtemp(prefix="golden_det_") if args.flagship else ""
-    frames, poses_wc = render(args.frames, cspec, det_dir=det_dir)
+    sensor = "rgbd" if args.rgbd else "stereo" if args.stereo else "mono"
+    flags = (flagship_flags() if args.flagship else rgbd_flags() if args.rgbd
+             else FeatureFlags(enable_loop_closing=False))
+    cfg = SlamConfig().replace(sensor=sensor, caps=caps, orb=orb, flags=flags)
+    det_dir = tempfile.mkdtemp(prefix="golden_det_") if args.flagship or args.rgbd else ""
+    frames, poses_wc, depths, rights = render(args.frames, cspec, det_dir=det_dir, depth=args.rgbd,
+                                              right=args.stereo, planes=args.flagship)
     cam = Camera.make(cspec.fx, cspec.fy, cspec.cx, cspec.cy, width=cspec.width,
                       height=cspec.height, bf=cspec.fx * cspec.baseline)
     K_np = np.asarray(cam.K)
     tracker = Tracker(cam, cfg)
-    sem = {"rescales": 0, "ba_plane_factors": 0, "ba_bbox_factors": 0}
-    if args.flagship:
-        rescale, local_ba = jms.rescale_map, jlm.local_ba
+    semantic = args.flagship or args.rgbd
+    sem = {"rescales": 0, "ba_plane_factors": 0, "ba_bbox_factors": 0, "stereo_factors": 0}
+    rescale, local_ba, stereo_matches = jms.rescale_map, jlm.local_ba, jks.compute_stereo_matches
+    n_matched = []
 
-        def counted_rescale(m, s_):
-            sem["rescales"] += 1
-            return rescale(m, s_)
+    def counted_rescale(m, s_):
+        sem["rescales"] += 1
+        return rescale(m, s_)
 
-        def counted_local_ba(state, data, w, **kw):
-            sem["ba_plane_factors"] += int(np.asarray(data.plane_obs.valid).sum())
-            sem["ba_bbox_factors"] += int(np.asarray(data.cub_bbox.valid).sum())
-            return local_ba(state, data, w, **kw)
+    def counted_local_ba(state, data, w, **kw):
+        sem["ba_plane_factors"] += int(np.asarray(data.plane_obs.valid).sum())
+        sem["ba_bbox_factors"] += int(np.asarray(data.cub_bbox.valid).sum())
+        sem["stereo_factors"] += int(np.asarray(data.stereo.valid).sum())
+        return local_ba(state, data, w, **kw)
 
-        jms.rescale_map, jlm.local_ba = counted_rescale, counted_local_ba
-    times, first = [], None
+    def counted_stereo_matches(*a, **kw):
+        out = stereo_matches(*a, **kw)
+        n_matched.append(int(np.asarray(out[2]).sum()))
+        return out
+
+    jms.rescale_map, jlm.local_ba, jks.compute_stereo_matches = (
+        counted_rescale, counted_local_ba, counted_stereo_matches)
+    times, first, online_planes = [], None, 0
     t_all = time.perf_counter()
     for fid, gray in enumerate(frames):
         pdet = cdet = None
         if args.flagship:
             pdet = read_offline_planes(os.path.join(det_dir, f"{fid}_offline_plane_multiplane.txt"),
                                        cfg.caps.max_planes_per_frame)
+        if args.rgbd:
+            pdet = detect_planes_online(depths[fid], cam, cfg.caps.max_planes_per_frame)
+            online_planes += int(np.asarray(pdet.valid).sum())
+        if semantic:
             cdet = read_offline_cuboids(os.path.join(det_dir, f"{fid:04d}_3d_cuboids.txt"), poses_wc[fid],
                                         K_np, cfg.caps.max_cuboids_per_frame)
         t0 = time.perf_counter()
-        T = tracker.process_image(gray, fid, plane_det=pdet, cuboid_det=cdet)
+        if args.stereo:
+            T = tracker.process_stereo_pair(gray, rights[fid], fid)
+        else:
+            T = tracker.process_image(gray, fid, depth=depths[fid] if args.rgbd else None,
+                                      plane_det=pdet, cuboid_det=cdet)
         times.append(time.perf_counter() - t0)
         if T is not None and first is None:
             first = fid
@@ -143,6 +212,15 @@ def main(argv=None):
     wall = time.perf_counter() - t_all
     gt = [np.linalg.inv(np.asarray(p, np.float64)) for p in poses_wc]
     corrected = _corrected_trajectory(tracker)
+    extra = {}
+    if semantic:
+        extra.update({k: sem[k] for k in ("rescales", "ba_plane_factors", "ba_bbox_factors")})
+    if sensor != "mono":
+        extra["stereo_factors"] = sem["stereo_factors"]
+    if args.rgbd:
+        extra["online_planes"] = online_planes
+    if args.stereo:
+        extra["stereo_matches"] = float(np.median(n_matched))
     rep = {
         "frames": len(frames),
         "tracked": len(tracker.trajectory),
@@ -153,20 +231,23 @@ def main(argv=None):
         "points": tracker.live_points(),
         "planes": tracker.n_plane,
         "cuboids": tracker.n_cub,
-        **(sem if args.flagship else {}),
+        **extra,
         "wall_s": wall,
         "median_frame_ms": 1e3 * float(np.median(times)),
     }
+    # metric sensors make metric maps: their error is reported without scale
+    scale = sensor == "mono"
     if corrected:
         rep["ate_raw_m"] = ate_rmse([p for _, p in tracker.trajectory],
-                                    [gt[f] for f, _ in tracker.trajectory])[0]
-        rep["ate_m"] = ate_rmse([p for _, p in corrected], [gt[f] for f, _ in corrected])[0]
+                                    [gt[f] for f, _ in tracker.trajectory], with_scale=scale)[0]
+        rep["ate_m"] = ate_rmse([p for _, p in corrected], [gt[f] for f, _ in corrected], with_scale=scale)[0]
         kv = np.asarray(tracker.map.kf_valid)
         fid = np.asarray(tracker.map.kf_frame_id)
         pose = np.asarray(tracker.map.kf_pose)
         sel = [s for s in np.flatnonzero(kv) if np.isfinite(pose[s]).all()]
         if len(sel) >= 3:
-            rep["kf_ate_m"] = ate_rmse([pose[s] for s in sel], [gt[int(fid[s])] for s in sel])[0]
+            rep["kf_ate_m"] = ate_rmse([pose[s] for s in sel], [gt[int(fid[s])] for s in sel],
+                                       with_scale=scale)[0]
     print(json.dumps(rep))
     return rep
 

@@ -10,12 +10,19 @@ points are what the JAX package's ``create_new_map_points`` triangulates
 between consecutive keyframes, written with ``add_points`` and
 ``assign_observations``, then ``fuse_duplicates`` into every keyframe and
 ``update_point_stats``.  Built once per process.
+
+Importing this module caps torch's intra-op threads at 2 for the process:
+with the suite in 6 pytest-xdist workers on 8 cores (each worker imports
+every test file), torch's default of one spinning thread per core in each
+worker slowed the port's tests several-fold (``test_torch_tracker_depth``
+680 s of worker time in the whole suite against 117 s alone).
 """
 
 import functools
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from tpuslam.backend import mapping as jbm
 from tpuslam.core import camera as jcam
@@ -24,6 +31,8 @@ from tpuslam.frontend import tracking as jtr
 from tpuslam.io import synth
 from tpuslam.kernels import orb as jorb
 from tpuslam.map import mapstate as jms
+
+torch.set_num_threads(2)
 
 N_FEAT = 256
 CAPS = Capacities(max_keypoints=N_FEAT, max_keyframes=16, max_points=2048,

@@ -91,9 +91,11 @@ def test_tracker_refuses_what_the_port_lacks():
     c = sc.CSPEC
     cam = Camera.make(c.fx, c.fy, c.cx, c.cy, "cpu", width=c.width, height=c.height)
     base = _cfg(tcfg)
-    for cfg in (base.replace(sensor="rgbd"), base.replace(sensor="stereo"), base.replace(flags=tcfg.FeatureFlags())):
-        with pytest.raises(NotImplementedError):
-            ttr.Tracker(cam, cfg, device="cpu")
+    with pytest.raises(NotImplementedError):  # loop closing is not ported
+        ttr.Tracker(cam, base.replace(flags=tcfg.FeatureFlags()), device="cpu")
+    # the depth sensors are ported: both construct
+    for sensor in ("rgbd", "stereo"):
+        assert ttr.Tracker(cam, base.replace(sensor=sensor), device="cpu").cfg.sensor == sensor
     # planes and objects are ported: every other flag is accepted
     every = {f.name: True for f in dataclasses.fields(tcfg.FeatureFlags) if f.name != "enable_loop_closing"}
     ttr.Tracker(cam, base.replace(flags=tcfg.FeatureFlags(enable_loop_closing=False, **every)), device="cpu")

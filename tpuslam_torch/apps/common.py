@@ -31,10 +31,13 @@ def _stage(gray, device):
 
 
 def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False, per_frame=None):
-    """Drive the tracker over ``(frame_id, gray)`` items.  The next frame's
-    upload is started before the current frame is processed.
-    ``per_frame(frame_id)`` may return the frame's (plane_det, cuboid_det),
-    the semantic input of a keyframe.
+    """Drive the tracker over ``(frame_id, gray)`` items, ``(frame_id, gray,
+    depth)`` for an RGB-D tracker and ``(frame_id, left, right)`` for a
+    stereo one (common.py:167-215 of the reference: a stereo item goes to
+    ``process_stereo_pair``, an RGB-D one to ``process_image`` with its
+    depth).  The next frame's upload is started before the current frame is
+    processed.  ``per_frame(item)``, given the uploaded item, may return the
+    frame's (plane_det, cuboid_det), the semantic input of a keyframe.
 
     Returns the per-frame wall times (s).  With ``count_waits`` on a CUDA
     tracker, ``tracker.frame_waits`` gets one entry per frame: (frame id,
@@ -44,16 +47,18 @@ def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False,
     tracker's reads among them) plus the tracker's waits on CUDA events,
     which that mode does not see."""
     dev = tracker.device
+    sensor = tracker.cfg.sensor
     frame_times = []
     tracker.frame_waits = []
     it = iter(items)
-    cur = next(it, None)
-    cur = None if cur is None else (cur[0], _stage(cur[1], dev))
+
+    def staged(item):
+        return None if item is None else (item[0], *(_stage(x, dev) for x in item[1:]))
+
+    cur = staged(next(it, None))
     while cur is not None:
-        nxt = next(it, None)
-        if nxt is not None:
-            nxt = (nxt[0], _stage(nxt[1], dev))
-        fid, gray = cur
+        nxt = staged(next(it, None))
+        fid, gray = cur[:2]
         t0 = time.perf_counter()
         n_kf, events0 = len(tracker._kf_fids), tracker.waits.get("event", 0)
         tracking = tracker.state == tracker.OK
@@ -64,9 +69,13 @@ def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False,
         with ctx as caught:
             if counting:
                 warnings.simplefilter("always")
-            pdet, cdet = per_frame(fid) if per_frame is not None else (None, None)
+            pdet, cdet = per_frame(cur) if per_frame is not None else (None, None)
             with prof.section("time single frame"):
-                tracker.process_image(gray, fid, plane_det=pdet, cuboid_det=cdet)
+                if sensor == "stereo":
+                    tracker.process_stereo_pair(gray, cur[2], fid, plane_det=pdet, cuboid_det=cdet)
+                else:
+                    tracker.process_image(gray, fid, depth=cur[2] if sensor == "rgbd" else None,
+                                          plane_det=pdet, cuboid_det=cdet)
         if counting:
             torch.cuda.set_sync_debug_mode("default")
             syncs = Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
@@ -120,12 +129,14 @@ def corrected_trajectory(tracker: Tracker):
     return out
 
 
-def finish(tracker: Tracker, frame_times, gt=None, out_dir: str = ""):
+def finish(tracker: Tracker, frame_times, gt=None, out_dir: str = "", metric: bool = False):
     """The report of the reference's ``finish``: counts (planes and cuboids
     among them), frame times, per-keyframe stage ms, and with ``gt``
-    (world->camera poses by frame id) the Sim3-aligned ATE of the corrected,
-    the raw and the live keyframe trajectories.  With ``out_dir``, also the
-    TUM files and CuboidPose.txt / PlanePose.txt."""
+    (world->camera poses by frame id) the ATE of the corrected, the raw and
+    the live keyframe trajectories, Sim3-aligned, or with ``metric`` (the
+    depth sensors' metric maps) SE3-aligned without scale (common.py:365,
+    :372, :389).  With ``out_dir``, also the TUM files and CuboidPose.txt /
+    PlanePose.txt."""
     tracker.flush()
     corrected = corrected_trajectory(tracker)
     if out_dir:
@@ -162,16 +173,17 @@ def finish(tracker: Tracker, frame_times, gt=None, out_dir: str = ""):
         }
     if gt is not None and corrected:
         est = [(f, p) for f, p in corrected if f < len(gt)]
+        scale = not metric
         if est:
-            report["ate_rmse_m"] = ate_rmse([p for _, p in est], [gt[f] for f, _ in est])[0]
+            report["ate_rmse_m"] = ate_rmse([p for _, p in est], [gt[f] for f, _ in est], with_scale=scale)[0]
         raw = [(f, p) for f, p in tracker.trajectory if f < len(gt)]
         if raw:
-            report["ate_rmse_raw_m"] = ate_rmse([p for _, p in raw], [gt[f] for f, _ in raw])[0]
+            report["ate_rmse_raw_m"] = ate_rmse([p for _, p in raw], [gt[f] for f, _ in raw], with_scale=scale)[0]
         kf_valid = tracker.map.kf_valid.cpu().numpy()
         kf_fid = tracker.map.kf_frame_id.cpu().numpy()
         kf_pose = tracker.map.kf_pose.cpu().numpy()
         sel = [(int(kf_fid[s]), kf_pose[s]) for s in np.flatnonzero(kf_valid)
                if int(kf_fid[s]) < len(gt) and np.isfinite(kf_pose[s]).all()]
         if len(sel) >= 3:
-            report["kf_ate_rmse_m"] = ate_rmse([p for _, p in sel], [gt[f] for f, _ in sel])[0]
+            report["kf_ate_rmse_m"] = ate_rmse([p for _, p in sel], [gt[f] for f, _ in sel], with_scale=scale)[0]
     return report

@@ -3,6 +3,8 @@
 
     python -m tpuslam_torch.apps.golden --frames 200              # on cuda:0
     python -m tpuslam_torch.apps.golden --frames 200 --flagship   # planes and objects
+    python -m tpuslam_torch.apps.golden --frames 200 --rgbd       # RGB-D, online planes, objects
+    python -m tpuslam_torch.apps.golden --frames 100 --stereo     # stereo, points only
     python -m tpuslam_torch.apps.golden --frames 48 --small --device cpu
 
 The bench's golden trajectory (560 frames, 400 degrees) is rendered on the
@@ -18,6 +20,19 @@ configuration): each frame's offline plane and cuboid detections are made in
 memory from the renderer's per-primitive counts and face sums, as
 ``write_sequence`` writes them and ``mono_icl`` reads them, and a per-frame
 hook hands them to the ``Tracker``.
+
+``--rgbd`` is ``rgbd_icl --planes online --objects`` on that ``ICL.yaml``
+(``bf`` 39, ``ThDepth`` 40, so points closer than 3 m are close): each
+frame's depth is the renderer's as the golden depth PNGs store it and
+``IclDataset`` reads it (``synth.quantize_depth``), planes are segmented
+online from it on every frame, and the cuboid rows are the flagship's.
+``--stereo`` is ``stereo_kitti``'s configuration (points only) with a right
+view rendered at the camera moved by the ``ICL.yaml`` baseline (0.075 m)
+along its own +x axis, through ``Tracker.process_stereo_pair``.  Both report
+the error without scale (their maps are metric) and the valid stereo factors
+over the local BAs (``stereo_factors``); ``--rgbd`` adds the plane detections
+over the frames (``online_planes``), ``--stereo`` the median per frame of the
+left keypoints with a stereo match (``stereo_matches``).
 """
 
 from __future__ import annotations
@@ -25,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -33,6 +49,7 @@ from ..core.camera import Camera
 from ..core.config import Capacities, FeatureFlags, OrbConfig, SlamConfig
 from ..frontend.tracking import Tracker
 from ..io import synth
+from ..semantic.detect import detect_planes_online
 from ..utils.profiler import Profiler
 from .common import finish, run_loop
 
@@ -50,72 +67,122 @@ def flagship_flags() -> FeatureFlags:
     )
 
 
-def golden_setup(small: bool = False, flagship: bool = False):
+def rgbd_flags() -> FeatureFlags:
+    """``rgbd_icl --planes online --objects`` (tpuslam/apps/rgbd_icl.py:33-41),
+    loop closing off."""
+    return FeatureFlags(
+        detect_plane=True, read_offline_planetxt=False, detect_object=True, read_offline_cuboidtxt=True,
+        optimize_with_plane_3d=True, optimize_with_cuboid_2d=True, enable_loop_closing=False,
+    )
+
+
+class Rendered(NamedTuple):
+    """What :func:`render_golden` returns; the images stay on the host
+    (pinned on a card run) and go up one frame ahead of the tracker."""
+
+    frames: torch.Tensor  # (F, H, W) uint8 (the left view for stereo)
+    gt: np.ndarray  # (F, 4, 4) float64 world->camera
+    dets: Optional[list] = None  # per frame (plane, cuboid) detections
+    depth: Optional[torch.Tensor] = None  # (F, H, W) float32 metres, quantized as the PNGs
+    right: Optional[torch.Tensor] = None  # (F, H, W) uint8 right view
+
+
+def golden_setup(small: bool = False, flagship: bool = False, rgbd: bool = False, stereo: bool = False):
     """(camera spec, config): full width, or the 320x240 / 512-feature cut
-    with the capacities of ``tests/test_long_replay.py``; points only, or
-    the flagship's flags."""
+    with the capacities of ``tests/test_long_replay.py``; mono points only,
+    the flagship's flags, RGB-D with ``rgbd_icl``'s or stereo points only."""
     if small:
         cspec = synth.CameraSpec(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
         caps = Capacities(max_keypoints=512, max_keyframes=256, max_points=8192, local_ba_points=2048)
         orb = OrbConfig(n_features=512)
     else:
         cspec, caps, orb = synth.CameraSpec(), Capacities(), OrbConfig()
-    flags = flagship_flags() if flagship else FeatureFlags(enable_loop_closing=False)
-    return cspec, SlamConfig().replace(sensor="mono", caps=caps, orb=orb, flags=flags)
+    flags = (flagship_flags() if flagship else rgbd_flags() if rgbd
+             else FeatureFlags(enable_loop_closing=False))
+    sensor = "rgbd" if rgbd else "stereo" if stereo else "mono"
+    return cspec, SlamConfig().replace(sensor=sensor, caps=caps, orb=orb, flags=flags)
 
 
-def render_golden(n_frames: int, cspec, device, cfg=None):
-    """(frames (F, H, W) uint8 on the host, pinned on a CUDA run;
-    gt world->camera poses (F, 4, 4) float64).  With ``cfg`` (the flagship's)
-    also each frame's (plane, cuboid) detections, a list of F pairs."""
+def render_golden(n_frames: int, cspec, device, cfg=None, depth: bool = False, right: bool = False) -> Rendered:
+    """The first ``n_frames`` golden frames, rendered on ``device``, and
+    their ground truth.  With ``cfg`` (the flagship's or RGB-D's) also each
+    frame's (plane, cuboid) detections; with ``depth`` the depth maps; with
+    ``right`` the stereo right view."""
     spec = synth.SceneSpec()
     poses = synth.trajectory(GOLDEN_FRAMES, spec, total_angle_deg=GOLDEN_ANGLE_DEG)[:n_frames]
     renderer = synth.make_batch_renderer(cspec, spec, device)
     gt = np.linalg.inv(poses.astype(np.float64))
-    if cfg is None:
-        frames = synth.render_uint8(renderer, poses).cpu()
-    else:
-        frames, counts, sums = synth.render_uint8(renderer, poses, stats=True)
-        frames = frames.cpu()
+    out = synth.render_uint8(renderer, poses, stats=cfg is not None, depth=depth)
+    out = out if isinstance(out, tuple) else (out,)
+    pin = torch.device(device).type == "cuda"
+
+    def host(t):
+        t = t.cpu()
+        return t.pin_memory() if pin else t
+
+    dets = None
+    if cfg is not None:
         caps = cfg.caps
+        counts, sums = out[1], out[2]
         dets = [synth.frame_detections(poses[f], counts[f], sums[f], spec, cspec, caps.max_planes_per_frame,
                                        caps.max_cuboids_per_frame) for f in range(len(poses))]
-    if torch.device(device).type == "cuda":
-        frames = frames.pin_memory()
-    return (frames, gt) if cfg is None else (frames, gt, dets)
+    rgt = None
+    if right:
+        rgt = host(synth.render_uint8(renderer, synth.right_poses(poses, cspec.baseline)))
+    return Rendered(frames=host(out[0]), gt=gt, dets=dets, depth=host(out[-1]) if depth else None, right=rgt)
 
 
 def run_golden(n_frames: int = 200, device="cuda:0", small: bool = False, count_waits: bool = False,
-               rendered=None, flagship: bool = False):
+               rendered: Optional[Rendered] = None, flagship: bool = False, rgbd: bool = False,
+               stereo: bool = False):
     """Render, track, report.  ``rendered``: what :func:`render_golden`
     returns, to replay instead of rendering on ``device``.  ``flagship``:
-    planes and objects.  Returns (report, tracker)."""
+    planes and objects; ``rgbd``: RGB-D with online planes and objects;
+    ``stereo``: a stereo pair, points only.  Returns (report, tracker)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    cspec, cfg = golden_setup(small, flagship)
+    cspec, cfg = golden_setup(small, flagship, rgbd, stereo)
     if rendered is None:
-        rendered = render_golden(n_frames, cspec, device, cfg if flagship else None)
-    frames, gt = rendered[:2]
-    per_frame = rendered[2].__getitem__ if flagship else None
+        rendered = render_golden(n_frames, cspec, device, cfg if flagship or rgbd else None, depth=rgbd,
+                                 right=stereo)
+    frames, gt = rendered.frames, rendered.gt
     cam = Camera.make(cspec.fx, cspec.fy, cspec.cx, cspec.cy, device, width=cspec.width,
                       height=cspec.height, bf=cspec.fx * cspec.baseline)
     tracker = Tracker(cam, cfg, device=device)
+    per_frame = None
+    online = []  # plane detections per frame (device scalars)
+    if flagship:
+        def per_frame(item):
+            return rendered.dets[item[0]]
+    elif rgbd:
+        def per_frame(item):
+            pdet = detect_planes_online(item[2].to(torch.float32), cam, cfg.caps.max_planes_per_frame)
+            online.append(pdet.valid.sum())
+            return pdet, rendered.dets[item[0]][1]
+    extra = rendered.depth if rgbd else rendered.right if stereo else None
     prof = Profiler()
     t0 = time.perf_counter()
-    items = ((i, frames[i]) for i in range(n_frames))
+    items = ((i, frames[i]) + (() if extra is None else (extra[i],)) for i in range(n_frames))
     ft = run_loop(tracker, items, prof, count_waits=count_waits, per_frame=per_frame)
     tracker.flush()
     if tracker.device.type == "cuda":
         torch.cuda.synchronize(tracker.device)
     wall = time.perf_counter() - t0
-    rep = finish(tracker, ft, gt=gt)
+    rep = finish(tracker, ft, gt=gt, metric=rgbd or stereo)
     rep.update(first_tracked=tracker.trajectory[0][0] if tracker.trajectory else None,
                wall_s=wall, frames_per_s=n_frames / wall,
                median_frame_ms=1e3 * rep["median_frame_s"],
                kf_frame_ids=[int(f) for f in tracker._kf_fids])
     if flagship:
-        rep.update(rescales=tracker.n_rescales,
-                   **{f"ba_{k}_factors": int(v) for k, v in tracker.ba_factors.items()})
+        rep["rescales"] = tracker.n_rescales
+    if flagship or rgbd:
+        rep.update({f"ba_{k}_factors": int(v) for k, v in tracker.ba_factors.items() if k != "stereo"})
+    if rgbd or stereo:
+        rep["stereo_factors"] = int(tracker.ba_factors.get("stereo", 0))
+    if rgbd:
+        rep["online_planes"] = int(torch.stack(online).sum()) if online else 0
+    if stereo:
+        rep["stereo_matches"] = float(np.median([int(n) for n in tracker.stereo_matches]))
     return rep, tracker
 
 
@@ -124,9 +191,13 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--device", default="cuda:0")
-    ap.add_argument("--flagship", action="store_true", help="planes and objects (mono_icl --planes --objects)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--flagship", action="store_true", help="planes and objects (mono_icl --planes --objects)")
+    mode.add_argument("--rgbd", action="store_true", help="RGB-D, online planes and objects (rgbd_icl)")
+    mode.add_argument("--stereo", action="store_true", help="a stereo pair, points only (stereo_kitti)")
     args = ap.parse_args(argv)
-    rep, _ = run_golden(args.frames, args.device, args.small, flagship=args.flagship)
+    rep, _ = run_golden(args.frames, args.device, args.small, flagship=args.flagship, rgbd=args.rgbd,
+                        stereo=args.stereo)
     print(json.dumps(rep))
     return rep
 

@@ -1,6 +1,7 @@
 """Local BA: covisibility window -> packed factors -> LM solve -> scatter
-back (port of the mono paths of ``tpuslam/backend/local_ba.py``: points
-only, and the heterogeneous graph with planes and cuboids).
+back (port of the local paths of ``tpuslam/backend/local_ba.py``: points
+only, mono or with the stereo bundle of the depth sensors, and the
+heterogeneous graph with planes and cuboids).
 
 The window follows Optimizer::LocalBundleAdjustment and
 LocalBACameraPlaneCuboids (Optimizer.cc:461-560, 1994-2140): optimized
@@ -41,11 +42,14 @@ def pack_local_ba(m: ms.MapState, center_kf: int, cam, n_opt: int = 16, n_fixed:
                   n_local_pts: int = 4096, use_planes: bool = False, use_cub_2d: bool = False,
                   use_corners_2d: bool = False, use_cub_3d: bool = False, use_pt_obj: bool = False,
                   use_cub_plane: bool = False, pt_per_cub: int = 64,
-                  fix_cuboid_scale: bool = False) -> LocalBAPack:
+                  fix_cuboid_scale: bool = False, use_stereo: bool = False) -> LocalBAPack:
     """The BA problem around ``center_kf``.  Slot 0 is always fixed (the
     gauge, Optimizer.cc:2103-2111), as are the fixed frontier and empty
-    window lanes.  With any ``use_*`` flag the planes and cuboids join as
-    whole-map variables (:func:`_pack_semantic`)."""
+    window lanes.  With ``use_stereo`` an observation with a right-view
+    coordinate (``ur >= 0``) becomes a stereo factor and the rest stay mono,
+    both bundles on the same (window keyframe, keypoint) lanes
+    (local_ba.py:113-127).  With any other ``use_*`` flag the planes and
+    cuboids join as whole-map variables (:func:`_pack_semantic`)."""
     K, N = m.kf_pt.shape
     P = m.pt_pos.shape[0]
     dev = m.kf_pt.device
@@ -75,28 +79,33 @@ def pack_local_ba(m: ms.MapState, center_kf: int, cam, n_opt: int = 16, n_fixed:
     pt_gl = m.kf_pt[kf_global, kp]
     pt_lc = inv_map[pt_gl.clamp(0, P - 1).long()]
     valid = window_mask[kf_local] & m.kf_kp_valid[kf_global, kp] & (pt_gl >= 0) & (pt_lc >= 0)
-    mono = lm.MonoFactors(
-        kf=kf_local, pt=pt_lc.clamp(min=0), uv=m.kf_uv[kf_global, kp],
-        inv_sigma2=_scale_inv_sigma2(m.kf_octave[kf_global, kp]), valid=valid,
-    )
+    uv = m.kf_uv[kf_global, kp]
+    inv_s2 = _scale_inv_sigma2(m.kf_octave[kf_global, kp])
+    stereo = None
+    if use_stereo:
+        ur = m.kf_ur[kf_global, kp]
+        stereo = lm.StereoFactors(kf=kf_local, pt=pt_lc.clamp(min=0), uvr=torch.cat([uv, ur[:, None]], dim=-1),
+                                  inv_sigma2=inv_s2, valid=valid & (ur >= 0))
+        valid = valid & (ur < 0)
+    mono = lm.MonoFactors(kf=kf_local, pt=pt_lc.clamp(min=0), uv=uv, inv_sigma2=inv_s2, valid=valid)
     flags = dict(use_planes=use_planes, use_cub_2d=use_cub_2d, use_corners_2d=use_corners_2d,
                  use_cub_3d=use_cub_3d, use_pt_obj=use_pt_obj, use_cub_plane=use_cub_plane)
     if any(flags.values()):
         state, data = _pack_semantic(m, cam, window_ids, window_mask, point_ids, point_mask, pose_fixed, mono,
-                                     pt_per_cub, fix_cuboid_scale, **flags)
+                                     stereo, pt_per_cub, fix_cuboid_scale, **flags)
         return LocalBAPack(state=state, data=data, window_ids=window_ids, window_mask=window_mask,
                            point_ids=point_ids, point_mask=point_mask)
     state = lm.BAState(
         poses=m.kf_pose[window_ids], points=m.pt_pos[point_ids],
         planes=m.plane_coef[:1], cuboid_pose=m.cub_pose[:1], cuboid_scale=m.cub_scale[:1],
     )
-    data = lm.make_ba_data(W, n_local_pts, 1, 1, cam, mono=mono, pose_fixed=pose_fixed,
+    data = lm.make_ba_data(W, n_local_pts, 1, 1, cam, mono=mono, stereo=stereo, pose_fixed=pose_fixed,
                            point_active=point_mask)
     return LocalBAPack(state=state, data=data, window_ids=window_ids, window_mask=window_mask,
                        point_ids=point_ids, point_mask=point_mask)
 
 
-def _pack_semantic(m: ms.MapState, cam, window_ids, window_mask, point_ids, point_mask, pose_fixed, mono,
+def _pack_semantic(m: ms.MapState, cam, window_ids, window_mask, point_ids, point_mask, pose_fixed, mono, stereo,
                    pt_per_cub, fix_cuboid_scale, use_planes, use_cub_2d, use_corners_2d, use_cub_3d,
                    use_pt_obj, use_cub_plane):
     """The heterogeneous problem (local_ba.py:158-297 of the reference):
@@ -177,19 +186,25 @@ def _pack_semantic(m: ms.MapState, cam, window_ids, window_mask, point_ids, poin
                                                                             "pt_cub") if k in bundles]) & m.cub_valid
     state = lm.BAState(poses=m.kf_pose[window_ids], points=m.pt_pos[point_ids], planes=m.plane_coef,
                        cuboid_pose=m.cub_pose, cuboid_scale=m.cub_scale)
-    data = lm.make_ba_data(W, point_ids.shape[0], Q, C, cam, mono=mono, pose_fixed=pose_fixed,
+    data = lm.make_ba_data(W, point_ids.shape[0], Q, C, cam, mono=mono, stereo=stereo, pose_fixed=pose_fixed,
                            point_active=point_mask, plane_active=plane_active, cuboid_active=cuboid_active,
                            cuboid_fix_scale=1.0 if fix_cuboid_scale else 0.0, **bundles)
     return state, data
 
 
 def unpack_local_ba(m: ms.MapState, pack: LocalBAPack, state_opt: lm.BAState, data_out: lm.BAData,
-                    accept=True) -> ms.MapState:
+                    stereo_shared: bool = False, accept=True) -> ms.MapState:
     """Write the optimized poses (renormalized) and points back, unlink the
     observations gated out as outliers (Optimizer.cc:744-760), and kill each
     point left with <= 2 observers by that unlinking.  ``accept`` (a 0-d
     bool tensor) False keeps the map as it was; non-finite lanes always
-    keep their old values."""
+    keep their old values.
+
+    ``stereo_shared``: the stereo bundle shares the mono bundle's lanes, so
+    its outliers unlink through the same index (local_ba.py:299-345).  As in
+    the reference (local_ba.py:338-339), the stereo outliers are not gated
+    by ``accept``: a rejected solve keeps its poses and points but still
+    unlinks them, and kills the points they leave under-observed."""
     K, N = m.kf_pt.shape
     P = m.pt_pos.shape[0]
     W = pack.window_ids.shape[0]
@@ -206,6 +221,8 @@ def unpack_local_ba(m: ms.MapState, pack: LocalBAPack, state_opt: lm.BAState, da
     pt_pos = ms._padset(m.pt_pos, torch.where(pack.point_mask & pt_ok, pack.point_ids, P), state_opt.points)
 
     outlier = pack.data.mono.valid & ~data_out.mono.valid & accept
+    if stereo_shared:
+        outlier = outlier | (pack.data.stereo.valid & ~data_out.stereo.valid)
     kf_global = pack.window_ids.repeat_interleave(N)
     kp = torch.arange(N, device=dev).repeat(W)
     flat_idx = torch.where(outlier, kf_global * N + kp, K * N)
@@ -236,22 +253,24 @@ def run_local_ba(m: ms.MapState, center_kf: int, cam, cfg, stats: dict = None):
     A solve whose last phase-2 chi2 ends above 1.5x its first has diverged
     and is not written back (local_ba.py:629-640 of the reference).  The
     factor types follow the ``optimize_with_*`` flags (Parameters.cc:43-48):
-    the heterogeneous graph is built when at least one is on.
+    the heterogeneous graph is built when at least one is on.  The depth
+    sensors add the stereo bundle (local_ba.py:513-639).
     ``stats``: a dict that gains, per factor bundle, the number of valid
     factors packed (device scalars, summed over calls; nothing is read).
     Returns (map, phase-2 chi2s)."""
     caps = cfg.caps
     fl = cfg.flags
+    depth = cfg.sensor in ("rgbd", "stereo")
     pack = pack_local_ba(
         m, center_kf, cam, n_opt=caps.local_ba_keyframes, n_fixed=caps.local_ba_fixed_keyframes,
         n_local_pts=caps.local_ba_points, use_planes=fl.optimize_with_plane_3d,
         use_cub_2d=fl.optimize_with_cuboid_2d, use_corners_2d=fl.optimize_with_corners_2d,
         use_cub_3d=fl.optimize_with_cuboid_3d, use_pt_obj=fl.optimize_with_pt_obj_3d,
         use_cub_plane=fl.optimize_with_cuboid_plane, pt_per_cub=caps.max_points_per_cuboid,
-        fix_cuboid_scale=cfg.ba.cuboid_fix_scale,
+        fix_cuboid_scale=cfg.ba.cuboid_fix_scale, use_stereo=depth,
     )
     if stats is not None:
-        for key in ("mono",) + tuple(lm.BUNDLES):
+        for key in ("mono", "stereo") + tuple(lm.BUNDLES):
             b = getattr(pack.data, key)
             if b is not None:
                 stats[key] = stats.get(key, 0) + b.valid.sum()
@@ -261,4 +280,4 @@ def run_local_ba(m: ms.MapState, center_kf: int, cam, cfg, stats: dict = None):
         phase1_iters=cfg.ba.local_ba_iters_phase1, phase2_iters=cfg.ba.local_ba_iters_phase2,
     )
     accept = torch.isfinite(chi2s[-1]) & (chi2s[-1] <= 1.5 * chi2s[0] + 1e-3)
-    return unpack_local_ba(m, pack, state_opt, data_out, accept=accept), chi2s
+    return unpack_local_ba(m, pack, state_opt, data_out, stereo_shared=depth, accept=accept), chi2s

@@ -69,12 +69,8 @@ def stereo_residual(T_cw, X, uvr, fx, fy, cx, cy, bf):
     return torch.stack([u - uvr[..., 0], v - uvr[..., 1], ur - uvr[..., 2]], dim=-1)
 
 
-def stereo_jacobian(T_cw, X, fx, fy, bf):
-    """d stereo_residual / d delta at delta = 0 for ``retract_pose``: (..., 3, 6).
-
-    Analytic form of the reference's forward-mode Jacobian: with p = T X, a left
-    perturbation moves p by ``omega x p + upsilon``, so dp/d[omega, upsilon]
-    = [-[p]_x, I]; the depth clamp of ``stereo_residual`` has zero slope."""
+def _stereo_dr_dp(T_cw, X, fx, fy, bf):
+    """(d stereo_residual / d p (..., 3, 3), p = T X)."""
     p = geo.se3_apply(T_cw, X)
     z = _safe_z(p)
     live = (torch.abs(p[..., 2]) >= 1e-6).to(p.dtype)
@@ -83,10 +79,29 @@ def stereo_jacobian(T_cw, X, fx, fy, bf):
     du = torch.stack([fx * inv_z, zero, -fx * p[..., 0] * inv_z * inv_z * live], dim=-1)
     dv = torch.stack([zero, fy * inv_z, -fy * p[..., 1] * inv_z * inv_z * live], dim=-1)
     dur = du + torch.stack([zero, zero, bf * inv_z * inv_z * live], dim=-1)
-    dr_dp = torch.stack([du, dv, dur], dim=-2)  # (..., 3, 3)
+    return torch.stack([du, dv, dur], dim=-2), p
+
+
+def stereo_jacobian(T_cw, X, fx, fy, bf):
+    """d stereo_residual / d delta at delta = 0 for ``retract_pose``: (..., 3, 6).
+
+    Analytic form of the reference's forward-mode Jacobian: with p = T X, a left
+    perturbation moves p by ``omega x p + upsilon``, so dp/d[omega, upsilon]
+    = [-[p]_x, I]; the depth clamp of ``stereo_residual`` has zero slope."""
+    dr_dp, p = _stereo_dr_dp(T_cw, X, fx, fy, bf)
     eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(p.shape[:-1] + (3, 3))
     dp_dxi = torch.cat([-geo.so3_hat(p), eye], dim=-1)  # (..., 3, 6)
     return dr_dp @ dp_dxi
+
+
+def stereo_jacobians(T_cw, X, fx, fy, bf):
+    """d stereo_residual / d (pose delta, point delta) at zero for
+    ``retract_pose`` and ``retract_point``: ((..., 3, 6), (..., 3, 3)), the
+    reference's forward-mode pair (lm.py:490-503); dp/dX = R."""
+    dr_dp, p = _stereo_dr_dp(T_cw, X, fx, fy, bf)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(p.shape[:-1] + (3, 3))
+    dp_dxi = torch.cat([-geo.so3_hat(p), eye], dim=-1)
+    return dr_dp @ dp_dxi, dr_dp @ T_cw[..., :3, :3]
 
 
 def mono_jacobians(T_cw, X, fx, fy):

@@ -17,7 +17,10 @@ offline detections are: the renderer counts each frame's pixels per
 primitive and sums the camera-frame points of each room face in the pass
 that makes the frame, and :func:`frame_detections` turns those small arrays
 into the plane and cuboid rows ``write_sequence`` writes, through the same
-text rounding and parsing.
+text rounding and parsing.  For the depth sensors, :func:`render_uint8`
+also returns each frame's depth as ``write_sequence`` stores it in its
+uint16 PNGs and ``IclDataset`` reads it back (:func:`quantize_depth`), and
+:func:`right_poses` places a stereo rig's right camera.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ class CameraSpec:
     cy: float = 239.5
     baseline: float = 0.075  # Camera.bf = fx * baseline in the golden ICL.yaml
 
+
+# write_sequence's depth PNG scale (IclDataset.depth_factor)
+DEPTH_FACTOR = 5000.0
 
 # lattice offset keeping scene surfaces off exact texture-cell boundaries
 _LATTICE_OFF = 0.1234
@@ -231,25 +237,51 @@ class BatchRenderer(torch.nn.Module):
         return (*out, counts.reshape(B, n_prim + 1)[:, :n_prim], sums.reshape(B, 7, 3)[:, :6])
 
 
+def quantize_depth(depth):
+    """Depth in metres as ``write_sequence`` stores it
+    (``uint16(clip(depth * 5000, 0, 65535))``, synth.py:413) and ``IclDataset``
+    reads it back (``/ 5000`` in float32, datasets.py:45-52).  The divisor is
+    a tensor: on a card a division by a Python number is a product with its
+    reciprocal, which rounds otherwise."""
+    d16 = torch.clamp(depth * DEPTH_FACTOR, 0, 65535).to(torch.int32)
+    return d16.to(torch.float32) / torch.full((1,), DEPTH_FACTOR, device=depth.device)
+
+
+def right_poses(poses_wc, baseline: float):
+    """(F, 4, 4) float32 camera-to-world poses of a stereo rig's right
+    camera: each left camera moved by ``baseline`` along its own +x axis, so
+    that a point at depth Z seen at uL is seen at uR = uL - fx * baseline / Z."""
+    out = np.array(poses_wc, np.float32)
+    out[:, :3, 3] += np.float32(baseline) * out[:, :3, 0]
+    return out
+
+
 def make_batch_renderer(cam: CameraSpec, spec: SceneSpec, device="cuda:0") -> BatchRenderer:
     return BatchRenderer(cam, spec, device)
 
 
-def render_uint8(renderer: BatchRenderer, poses_wc, chunk: int = 8, stats: bool = False):
+def render_uint8(renderer: BatchRenderer, poses_wc, chunk: int = 8, stats: bool = False, depth: bool = False):
     """(F, H, W) uint8 frames of ``poses_wc`` (F, 4, 4) numpy, truncated as
     ``write_sequence`` stores its PNGs; rendered ``chunk`` poses at a time.
-    With ``stats`` also the renderer's counts and face sums, as host numpy."""
+    With ``stats`` also the renderer's counts and face sums, as host numpy;
+    with ``depth`` also the (F, H, W) float32 depth of :func:`quantize_depth`
+    on the renderer's device."""
     dev = renderer.d_cam.device
-    out, counts, sums = [], [], []
+    out, counts, sums, depths = [], [], [], []
     for i in range(0, len(poses_wc), chunk):
         r = renderer(torch.as_tensor(np.asarray(poses_wc[i:i + chunk], np.float32), device=dev), stats=stats)
         out.append(r[0].to(torch.uint8))
+        if depth:
+            depths.append(quantize_depth(r[1]))
         if stats:
             counts.append(r[3])
             sums.append(r[4])
-    if not stats:
-        return torch.cat(out)
-    return torch.cat(out), torch.cat(counts).cpu().numpy(), torch.cat(sums).cpu().numpy()
+    res = (torch.cat(out),)
+    if stats:
+        res += (torch.cat(counts).cpu().numpy(), torch.cat(sums).cpu().numpy())
+    if depth:
+        res += (torch.cat(depths),)
+    return res if len(res) > 1 else res[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Offline semantic detections: planes and cuboids (port of
-``tpuslam/semantic/detect.py`` but its online RGB-D plane segmentation).
+"""Semantic detections: offline planes and cuboids, and the RGB-D online
+plane segmentation (port of ``tpuslam/semantic/detect.py``).
 
 The reference consumes per-frame detection text files: plane rows
 ``[id nx ny nz d cx cy cz num]`` (Tracking.cc:2354-2377) and cuboid rows
@@ -8,9 +8,10 @@ measurements are taken from the global frame into the camera frame with the
 frame's ground-truth pose, and the 2D bbox and corners come from projecting
 the global cuboid with that pose (Tracking.cc:2004-2060).
 
-Everything here is host numpy, as in the reference: per-frame detector I/O is
-a handful of 4x4 products, and the consumers move it to the device at
-keyframe time.  Each reader is split into a row-parsing core
+The offline readers are host numpy, as in the reference: per-frame detector
+I/O is a handful of 4x4 products, and the consumers move it to the device at
+keyframe time.  :func:`detect_planes_online` runs on the depth image's
+device and returns tensors there.  Each reader is split into a row-parsing core
 (:func:`planes_from_rows`, :func:`cuboids_from_lines`) and the file reader,
 so that detections made in memory go through the same parsing.
 """
@@ -22,9 +23,12 @@ from typing import NamedTuple
 
 import numpy as np
 
+from ..kernels.planes import segment_planes
+
 
 class PlaneDetections(NamedTuple):
-    """Per-frame plane measurements in the CAMERA frame, padded to L."""
+    """Per-frame plane measurements in the CAMERA frame, padded to L: host
+    numpy (offline rows) or tensors (online segmentation)."""
 
     coef: np.ndarray  # (L, 4) Hessian form, d >= 0
     centroid: np.ndarray  # (L, 3)
@@ -66,6 +70,16 @@ class CuboidDetections(NamedTuple):
             quality=np.full(o, 0.7, np.float32),
             valid=np.zeros(o, bool),
         )
+
+
+def detect_planes_online(depth, cam, cap: int, stride: int = 3) -> PlaneDetections:
+    """Online plane segmentation of a (H, W) float32 depth tensor: the PCL
+    OrganizedMultiPlaneSegmentation path of DetectPlane (Tracking.cc:2404-2513,
+    detect.py:77-90 of the reference) through ``kernels/planes.py``.  The
+    detections stay on the depth's device."""
+    coef, centroid, _, valid = segment_planes(depth, float(cam.fx), float(cam.fy), float(cam.cx),
+                                              float(cam.cy), stride=stride, max_planes=cap)
+    return PlaneDetections(coef=coef, centroid=centroid, valid=valid)
 
 
 def planes_from_rows(rows, cap: int) -> PlaneDetections:
