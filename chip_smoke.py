@@ -66,13 +66,13 @@ In order, it
      planes and cuboids each >= 1 and within +-2, at least one rescale,
      plane and bbox factors live in BA, raw ATE <= 1.5 x + 0.01 m; and K1
      and K2 held to their plain versions at this replay's shapes;
-  9. RGB-D: renders the first 200 golden frames on the card with their
+  9. RGB-D: renders the first 100 golden frames on the card with their
      depth (quantized as the golden depth PNGs) and the per-primitive
-     counts (the first 100 frames must equal phase 7's), and replays them
+     counts (the frames must equal phase 7's), and replays them
      with the flags of ``rgbd_icl --planes online --objects`` (planes
      segmented on every frame), then prints an ``rgbd`` line (phase 8's
      keys plus the valid stereo factors over the local BAs and the online
-     plane detections).  Gates against ``JAX_RGBD_200``: first tracked frame
+     plane detections).  Gates against ``JAX_RGBD_100``: first tracked frame
      <= 1, tracked >= 0.9 x the JAX run's, keyframes created within
      0.7-1.3 x, metric raw ATE (no scale) <= 1.5 x + 0.01 m, map planes
      >= 1 and within 2, stereo factors and online planes > 0; K1 and K2 at
@@ -88,14 +88,40 @@ In order, it
      within 10% of the JAX run's; ``compute_stereo_matches`` on frame 0 on
      the card and on the CPU (the card's features): ``ok`` equal and ``ur``
      within 1e-3 px; K1 at both views' shapes and K2 at this replay's;
- 11. prints each phase's seconds, the slice's frames/s, the device ms of
+ 11. loop closure: the drifted revisit of ``tests/test_loop_e2e.py``
+     (``revisit_map``, built with numpy and the port's ``mapstate``) closed
+     by the port's ``LoopCloser`` on the card and on the CPU at the
+     fixture's capacities (keyframe 11's corrected pose within
+     ``REVISIT_POSE_TOL``, the same live points), then on the card at the
+     default capacities (512 keyframes, 32768 points, 1024 keypoints, 1024
+     words) with the fixture's gates: the loop closes, keyframe 11's drift
+     falls below half, >= 30 duplicates merge and >= 30 of its keypoints
+     rebind to the original points; then a global BA on the welded map that
+     ``should_abort`` stops after one chunk of 5 LM iterations, and a whole
+     one (10) with its kernel launches (torch.profiler) and host waits
+     (sync debug mode).  The essential graph's and the global BA's device
+     ms are printed (CUDA events);
+ 12. relocalization: ``tests/test_reloc.py:37``'s fixture (``reloc_scene``)
+     on the card: >= 50 inliers and a position within 0.02 m, through the
+     widened re-search round, with K2 launched and held to its plain
+     version at these shapes;
+ 13. phase 7's 100 frames again with loop closing on (the default config,
+     the seeded 1024-word codebook), printed as a ``loops`` line with the
+     loop closer's ``loop_*`` ms per keyframe and the keyframes that
+     reached each detector gate; phase 7's gates against
+     ``JAX_GOLDEN_LOOPS_100`` and as many loops as that JAX run; on its
+     final map, the newest keyframe's word ids (exact), BoW row and scores
+     (1e-6) and a fresh detector's gates on the card against the CPU; K1
+     and K2 at its shapes;
+ 14. prints each phase's seconds, the slice's frames/s, the device ms of
      plane segmentation and of stereo matching per frame (CUDA events
      around one call), each kernel's device time (launches queued behind a
      spin, ``kernels/timing.py``) beside its bound and its plain version's
      host-paced time, then one JSON line of kernels (launches summed over
-     the six paths that run on the card: the slice, the card's small
-     replay, the golden, flagship, RGB-D and stereo replays), the card
-     line, and the result.
+     the eight paths that run on the card and launch them: the slice, the
+     card's small replay, the golden, flagship, RGB-D and stereo replays,
+     relocalization and the loops-on replay), the card line, and the
+     result.
 
 It imports nothing of JAX.  Any failed phase raises, and the script exits
 non-zero without printing the result line.
@@ -130,7 +156,7 @@ INT8_OPS_PER_MS = 1979e12 / 1e3
 # The JAX package's own CPU runs of the golden replays, the configurations of
 # phases 7-10 (PERF.md section 6, "the JAX package's CPU references"; made by
 # jax_golden_reference.py with --frames 100, --frames 200 --flagship,
-# --frames 200 --rgbd and --frames 100 --stereo)
+# --frames 100 --rgbd and --frames 100 --stereo)
 JAX_GOLDEN_100 = {
     "first_tracked": 4, "tracked": 96, "keyframes_created": 21, "keyframes_live": 9, "points": 949,
     "ate_raw_m": 0.013295897094951907, "ate_m": 0.01699286245898957, "kf_ate_m": 0.0035375663362657087,
@@ -140,11 +166,19 @@ JAX_FLAGSHIP_200 = {
     "planes": 4, "cuboids": 2, "rescales": 35, "ba_plane_factors": 745, "ba_bbox_factors": 27,
     "ate_raw_m": 0.05880955257317187, "ate_m": 0.07443938331379683, "kf_ate_m": 0.08390803846630975,
 }
-JAX_RGBD_200 = {
-    "first_tracked": 0, "tracked": 200, "keyframes_created": 10, "keyframes_live": 10, "points": 1380,
-    "planes": 9, "cuboids": 3, "ba_plane_factors": 170, "ba_bbox_factors": 0, "stereo_factors": 19023,
-    "online_planes": 996, "ate_raw_m": 0.006306639864188983, "ate_m": 0.006793023547176333,
-    "kf_ate_m": 0.004844278370731199,
+JAX_RGBD_100 = {
+    "first_tracked": 0, "tracked": 100, "keyframes_created": 6, "keyframes_live": 6, "points": 1003,
+    "planes": 8, "cuboids": 2, "ba_plane_factors": 75, "ba_bbox_factors": 0, "stereo_factors": 8489,
+    "online_planes": 520, "ate_raw_m": 0.004675963467971899, "ate_m": 0.005002573766998834,
+    "kf_ate_m": 0.0046654476425606085,
+}
+# jax_golden_reference.py --loops --frames 100: phase 7's replay with loop
+# closing on; ``loop_gates`` counts the keyframes that reached each gate of
+# the loop detector
+JAX_GOLDEN_LOOPS_100 = {
+    "first_tracked": 4, "tracked": 96, "keyframes_created": 21, "keyframes_live": 9, "points": 949, "loops": 0,
+    "loop_gates": {"stats": 12, "covisible": 12, "words": 5, "score": 3, "consistent": 0, "sim3": 0},
+    "ate_raw_m": 0.013295897094951907, "ate_m": 0.01699286245898957, "kf_ate_m": 0.0035375663362657087,
 }
 JAX_STEREO_100 = {
     "first_tracked": 0, "tracked": 100, "keyframes_created": 6, "keyframes_live": 6, "points": 937,
@@ -153,9 +187,14 @@ JAX_STEREO_100 = {
 }
 GOLDEN_FRAMES = 100
 FLAGSHIP_FRAMES = 200
-RGBD_FRAMES = 200
+RGBD_FRAMES = 100
 STEREO_FRAMES = 100
 SMALL_FRAMES = 48
+LOOPS_FRAMES = 100
+# phase 11, the drifted revisit closed on the card and on the CPU at the
+# fixture's capacities: keyframe 11's corrected pose (the essential graph's
+# scatter-adds are float atomics on the card)
+REVISIT_POSE_TOL = 1e-3
 # segment_planes, card against CPU on one frame's depth: the valid planes'
 # coefficients (unit normal and distance in metres); float sums of ~34k
 # points in another order (1.3e-5 on the H100)
@@ -335,7 +374,7 @@ def replay_agreement(traj_a, traj_b, limit):
 def golden_replay(golden, dev):
     """Phase 7: the first 100 golden frames at full width, rendered on the
     card and held to the CPU's render on every pixel; returns the report
-    line, the tracker and the frames."""
+    line, the tracker and the rendered frames."""
     cspec, _ = golden.golden_setup()
     rendered = golden.render_golden(GOLDEN_FRAMES, cspec, dev)
     frames = rendered.frames
@@ -346,7 +385,7 @@ def golden_replay(golden, dev):
     line.update(wait_summary(tr))
     print("golden " + json.dumps(line), flush=True)
     replay_gates("golden", rep, JAX_GOLDEN_100, GOLDEN_FRAMES)
-    return line, tr, frames
+    return line, tr, rendered
 
 
 GOLDEN_KEYS = ("frames", "tracked", "first_tracked", "keyframes_created", "keyframes_live", "points",
@@ -437,7 +476,7 @@ SEMANTIC_KEYS = ("planes", "cuboids", "ba_mono_factors", "ba_plane_obs_factors",
 
 
 def rgbd_replay(golden, dev, golden_frames, read_launches):
-    """Phase 9: RGB-D, 200 golden frames at full width with online planes and
+    """Phase 9: RGB-D, 100 golden frames at full width with online planes and
     objects.  Returns the report line, the tracker, the kernels' launches in
     the replay (``read_launches()`` just after it), the rendered frames and
     the device ms of ``segment_planes`` on frame 0's depth."""
@@ -453,7 +492,7 @@ def rgbd_replay(golden, dev, golden_frames, read_launches):
     line = {k: rep.get(k) for k in GOLDEN_KEYS + SEMANTIC_KEYS + ("stereo_factors", "online_planes")}
     line.update(wait_summary(tr))
     print("rgbd " + json.dumps(line), flush=True)
-    ref = JAX_RGBD_200
+    ref = JAX_RGBD_100
     replay_gates("rgbd", rep, ref, RGBD_FRAMES, depth=True)
     n, n_ref = rep["planes"], ref["planes"]
     check(n >= 1 and abs(n - n_ref) <= 2, f"rgbd: {n} map planes, JAX package {n_ref} (>= 1, within 2)")
@@ -514,6 +553,351 @@ def stereo_replay(golden, dev, golden_frames, read_launches):
     match_ms = event_ms(lambda: compute_stereo_matches(gl, gr, *args, **kw))
     print(f"compute_stereo_matches: {match_ms:.3f} ms per frame (CUDA events around one call)", flush=True)
     return line, tr, launches, rendered, match_ms
+
+
+REVISIT_NKP, REVISIT_NPT = 128, 100
+
+
+def revisit_map(device, caps=None):
+    """The drifted revisit of ``tests/test_loop_e2e.py:22-134``, built with
+    numpy and the port's ``mapstate``: keyframes 0-10 observe 100 points
+    while wandering away, keyframe 11 sees keyframe 0's view again in a
+    Sim3-drifted world through 100 duplicate points, and 20 helper points
+    make keyframes 9-11 covisible.  ``caps``: the fixture's capacities
+    (16 keyframes, 512 points, 128 keypoints, 64 words) or larger ones, which
+    only pad.  Returns (camera, config, map, vocabulary, kf 0's pose, kf 11's
+    pose)."""
+    from tpuslam_torch.core import geometry as geo
+    from tpuslam_torch.core.camera import Camera
+    from tpuslam_torch.core.config import Capacities, SlamConfig
+    from tpuslam_torch.map import mapstate as ms
+    from tpuslam_torch.place import vocab as vb
+
+    NKP, NPT = REVISIT_NKP, REVISIT_NPT
+    caps = caps or Capacities(max_keypoints=NKP, max_keyframes=16, max_points=512, max_planes=4, max_cuboids=2,
+                              vocab_words=64)
+    nkp = caps.max_keypoints
+    rng = np.random.RandomState(5)
+    cam = Camera.make(300.0, 300.0, 160.0, 120.0, device, width=320, height=240)
+    cfg = SlamConfig(caps=caps)
+    pts_w = rng.uniform([-2, -1.5, 4], [2, 1.5, 9], (NPT, 3)).astype(np.float32)
+    desc = rng.randint(0, 1 << 32, (NPT, 8), dtype=np.uint64).astype(np.uint32)
+    m = ms.empty_map(caps, device)
+    vocab = vb.random_vocabulary(caps.vocab_words, seed=3, device=device)
+
+    def T(a, dtype=torch.float32):
+        a = np.asarray(a)
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(device)
+
+    def proj(Tcw, P):
+        pc = (Tcw[:3, :3] @ P.T).T + Tcw[:3, 3]
+        return np.stack([300.0 * pc[:, 0] / pc[:, 2] + 160.0, 300.0 * pc[:, 1] / pc[:, 2] + 120.0], -1)
+
+    def add_kf(slot, pose, uv_pts, pt_ids_pts):
+        uv = np.zeros((nkp, 2), np.float32)
+        uv[:NPT] = uv_pts
+        kp_valid = np.zeros(nkp, bool)
+        kp_valid[:NPT] = True
+        pt_ids = -np.ones(nkp, np.int32)
+        pt_ids[:NPT] = pt_ids_pts
+        dsc = np.zeros((nkp, 8), np.uint32)
+        dsc[:NPT] = desc
+        return ms.add_keyframe(m, slot, T(pose.astype(np.float32)), slot, T(uv), T(np.zeros(nkp, np.int32)),
+                               T(np.zeros(nkp, np.float32)), T(dsc), T(kp_valid), T(pt_ids),
+                               T(-np.ones(nkp, np.float32)), T(-np.ones(nkp, np.float32)))
+
+    def add_pts(ids, pos, dsc, first_kf):
+        n = len(ids)
+        return ms.add_points(m, T(np.asarray(ids, np.int64)), T(pos.astype(np.float32)), T(dsc),
+                             T(np.zeros((n, 3), np.float32)), T(np.zeros(n, np.float32)),
+                             T(np.full(n, 1e9, np.float32)), T(np.full(n, first_kf, np.int32)), T(np.ones(n, bool)))
+
+    # the revisit's drift: a small rotation, a translation and 5% of scale
+    xi = torch.tensor([0.02, -0.03, 0.01, 0.15, -0.1, 0.08, 0.05])
+    S_drift = geo.sim3_exp(xi).numpy()
+    poses = [np.eye(4, dtype=np.float32) for _ in range(12)]
+    for k in range(1, 11):
+        poses[k][:3, 3] = [0.3 * k, 0.0, -0.1 * k]
+    for k in range(11):
+        m = add_kf(k, poses[k], proj(poses[k], pts_w), np.arange(NPT))
+    m = add_pts(np.arange(NPT), pts_w, desc, 0)
+    pts_drift = (S_drift[:3, :3] @ pts_w.T).T + S_drift[:3, 3]
+    T11 = poses[0] @ np.linalg.inv(S_drift)
+    T11[:3, :3] /= np.cbrt(np.linalg.det(T11[:3, :3]))
+    m = add_kf(11, T11, proj(T11, pts_drift), 100 + np.arange(NPT))
+    m = add_pts(100 + np.arange(NPT), pts_drift, desc, 11)
+    extra_ids = 200 + np.arange(20)
+    m = add_pts(extra_ids, rng.uniform(-1, 1, (20, 3)), np.zeros((20, 8), np.uint32), 9)
+    kv, kd = m.kf_kp_valid.cpu().numpy(), m.kf_desc.cpu().numpy().view(np.uint32)
+    for k in (9, 10, 11):
+        m = ms.assign_observations(m, k, T(100 + np.arange(20, dtype=np.int32)), T(extra_ids.astype(np.int32)),
+                                   T(np.ones(20, bool)))
+        kv[k, 100:120] = True
+        kd[k, 100:120] = rng.randint(0, 1 << 32, (20, 8), dtype=np.uint64).astype(np.uint32)
+    m = m.replace(kf_kp_valid=T(kv), kf_desc=T(kd))
+    for k in range(12):
+        m = vb.update_kf_bow(vocab, m, k)[0]
+    return cam, cfg, m, vocab, poses[0], T11.astype(np.float32)
+
+
+def reloc_scene(device):
+    """``tests/test_reloc.py:37``'s relocalization fixture, built with numpy
+    and the port's ``mapstate``: one keyframe of 130 points (160 keypoints)
+    and a query frame at a nearby pose whose keypoint angles agree for only
+    35 keypoints, so the first matching pass stays below 50 and only the
+    widened re-search round reaches the acceptance threshold.  Returns
+    (camera, config, map, vocabulary, frame, the query's true pose)."""
+    from tpuslam_torch.core import geometry as geo
+    from tpuslam_torch.core.camera import Camera
+    from tpuslam_torch.core.config import Capacities, SlamConfig
+    from tpuslam_torch.frontend.tracking import Frame
+    from tpuslam_torch.map import mapstate as ms
+    from tpuslam_torch.place import vocab as vb
+
+    rng = np.random.RandomState(3)
+    NKP, NPT, F, C = 160, 130, 400.0, (320.0, 240.0)
+    cam = Camera.make(F, F, C[0], C[1], device)
+    caps = Capacities(max_keypoints=NKP, max_keyframes=8, max_points=256, max_planes=4, max_cuboids=2,
+                      vocab_words=64)
+    vocab = vb.random_vocabulary(caps.vocab_words, seed=1, device=device)
+    pts = rng.uniform([-3, -2, 4], [3, 2, 10], (NPT, 3)).astype(np.float32)
+    desc = rng.randint(0, 1 << 32, (NPT, 8), dtype=np.uint64).astype(np.uint32)
+
+    def T(a):
+        a = np.asarray(a)
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(device)
+
+    def proj(Tcw, P):
+        pc = (Tcw[:3, :3] @ P.T).T + Tcw[:3, 3]
+        return np.stack([F * pc[:, 0] / pc[:, 2] + C[0], F * pc[:, 1] / pc[:, 2] + C[1]], -1).astype(np.float32)
+
+    m = ms.empty_map(caps, device)
+    uv0 = np.zeros((NKP, 2), np.float32)
+    uv0[:NPT] = proj(np.eye(4, dtype=np.float32), pts)
+    kp_valid = np.zeros(NKP, bool)
+    kp_valid[:NPT] = True
+    pt_ids = -np.ones(NKP, np.int32)
+    pt_ids[:NPT] = np.arange(NPT)
+    dsc = np.zeros((NKP, 8), np.uint32)
+    dsc[:NPT] = desc
+    minus1 = T(-np.ones(NKP, np.float32))
+    m = ms.add_keyframe(m, 0, T(np.eye(4, dtype=np.float32)), 0, T(uv0), T(np.zeros(NKP, np.int32)),
+                        T(np.zeros(NKP, np.float32)), T(dsc), T(kp_valid), T(pt_ids), minus1, minus1)
+    m = ms.add_points(m, T(np.arange(NPT)), T(pts), T(desc), T(np.zeros((NPT, 3), np.float32)),
+                      T(np.zeros(NPT, np.float32)), T(np.full(NPT, 1e9, np.float32)), T(np.zeros(NPT, np.int32)),
+                      T(np.ones(NPT, bool)))
+    m = vb.update_kf_bow(vocab, m, 0)[0]
+    T_true = geo.se3_exp(torch.tensor([0.02, -0.01, 0.01, 0.1, -0.05, 0.05])).numpy()
+    uv = np.zeros((NKP, 2), np.float32)
+    uv[:NPT] = proj(T_true, pts) + rng.randn(NPT, 2).astype(np.float32) * 0.3
+    angles = np.zeros(NKP, np.float32)
+    angles[35:NPT] = rng.uniform(0.3, 2 * np.pi - 0.3, NPT - 35).astype(np.float32)
+    frame = Frame(uv=T(uv), octave=T(np.zeros(NKP, np.int32)), angle=T(angles), desc=T(dsc), valid=T(kp_valid),
+                  ur=minus1, depth=minus1)
+    return cam, SlamConfig(caps=caps), m, vocab, frame, T_true
+
+
+def close_revisit(dev, caps=None, events=False):
+    """The loop closer on :func:`revisit_map` with keyframe 0's group seen
+    twice before (``tests/test_loop_e2e.py:137``).  Returns (closed, kf 11's
+    pose before and after, kf 0's pose, live points before and after, kf 11's
+    bindings, the map, camera, config, and with ``events`` the device ms of
+    ``on_keyframe`` and of the essential graph inside it)."""
+    from tpuslam_torch.backend import posegraph
+    from tpuslam_torch.place.loop import LoopCloser
+
+    cam, cfg, m, vocab, T0, _ = revisit_map(dev, caps)
+    lc = LoopCloser(vocab, cam, cfg)
+    g0 = np.zeros(cfg.caps.max_keyframes, bool)
+    g0[:11] = True
+    lc.prev_groups = [(g0, 2)]
+    pose_before = m.kf_pose[11].cpu().numpy()
+    pts_before = int(m.pt_valid.sum())
+    timed = {}
+    optimize = posegraph.optimize_essential_graph
+    if events:
+        def timed_graph(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = optimize(*a, **kw)
+            ev[1].record()
+            timed["essential_graph"] = ev
+            return out
+
+        posegraph.optimize_essential_graph = timed_graph
+        ev_all = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev_all[0].record()
+    try:
+        m2, closed = lc.on_keyframe(m, 11, 12)
+    finally:
+        posegraph.optimize_essential_graph = optimize
+    ms_ = {}
+    if events:
+        ev_all[1].record()
+        ev_all[1].synchronize()
+        ms_["on_keyframe_ms"] = ev_all[0].elapsed_time(ev_all[1])
+        if "essential_graph" in timed:
+            a, b = timed["essential_graph"]
+            ms_["essential_graph_ms"] = a.elapsed_time(b)
+    return {"closed": closed, "pose_before": pose_before, "pose_after": m2.kf_pose[11].cpu().numpy(), "T0": T0,
+            "pts_before": pts_before, "pts_after": int(m2.pt_valid.sum()), "kf11_pt": m2.kf_pt[11].cpu().numpy(),
+            "map": m2, "cam": cam, "cfg": cfg, "stage_ms": dict(lc.stage_ms), **ms_}
+
+
+def loop_closure_phase(dev):
+    """Phase 11: the drifted revisit closed on the card and on the CPU at the
+    fixture's capacities (keyframe 11's pose agreeing), then on the card at
+    the default capacities with the gates of ``tests/test_loop_e2e.py``, and
+    a global BA on the welded map that ``should_abort`` stops after one
+    chunk.  Returns the numbers for the report."""
+    from tpuslam_torch.backend.local_ba import run_global_ba
+    from tpuslam_torch.core.config import Capacities
+
+    small_g, small_c = close_revisit(dev), close_revisit(torch.device("cpu"))
+    check(small_g["closed"] and small_c["closed"], "revisit at the fixture's capacities: the loop closes on the card "
+          "and on the CPU")
+    d = float(np.abs(small_g["pose_after"] - small_c["pose_after"]).max())
+    check(d <= REVISIT_POSE_TOL, f"revisit: keyframe 11's corrected pose, card vs CPU, max |diff| {d:.2e} <= "
+          f"{REVISIT_POSE_TOL}")
+    check(small_g["pts_after"] == small_c["pts_after"],
+          f"revisit: {small_g['pts_after']} live points after the merge on the card, CPU {small_c['pts_after']}")
+
+    full = close_revisit(dev, Capacities(), events=True)
+    T0 = full["T0"]
+    before = float(np.linalg.norm((full["pose_before"] - T0)[:3, 3]))
+    after = float(np.linalg.norm((full["pose_after"] - T0)[:3, 3]))
+    merged = full["pts_before"] - full["pts_after"]
+    kf11 = full["kf11_pt"][:REVISIT_NPT]
+    rebound = int((kf11[kf11 >= 0] < REVISIT_NPT).sum())
+    print(f"revisit at the default capacities: on_keyframe {full['on_keyframe_ms']:.1f} ms, essential graph "
+          f"{full['essential_graph_ms']:.1f} ms (CUDA events); loop stages (host ms) "
+          + json.dumps({k: round(v, 1) for k, v in full["stage_ms"].items()}), flush=True)
+    check(full["closed"], "revisit at the default capacities (512 keyframes, 32768 points, 1024 keypoints, "
+          "1024 words): the loop closes")
+    check(after < 0.5 * before, f"revisit: keyframe 11's offset from keyframe 0 {before:.3f} -> {after:.3f}, "
+          "below half")
+    check(merged >= 30, f"revisit: {merged} duplicate points merged (>= 30)")
+    check(rebound >= 30, f"revisit: {rebound} of keyframe 11's keypoints bound to the original points (>= 30)")
+
+    # the global BA that follows a closure, on the welded map
+    m, cam, cfg = full["map"], full["cam"], full["cfg"]
+    polls = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    _, chi2_abort = run_global_ba(m, cam, cfg, n_kf=12, should_abort=lambda: polls.append(1) or True)
+    ev[1].record()
+    ev[1].synchronize()
+    gba_abort_ms = ev[0].elapsed_time(ev[1])
+    check(len(polls) == 1 and chi2_abort.shape[0] == 5,
+          f"global BA: should_abort polled {len(polls)} time(s), {chi2_abort.shape[0]} LM iterations (one chunk of 5)")
+    # the whole global BA (two chunks of 5): device ms, kernel launches and host waits
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("always")
+        _, chi2_full = run_global_ba(m, cam, cfg, n_kf=12, should_abort=lambda: False)
+        torch.cuda.set_sync_debug_mode("default")
+    ev[1].record()
+    ev[1].synchronize()
+    gba_ms = ev[0].elapsed_time(ev[1])
+    waits = sum("synchroniz" in str(w.message) for w in caught)
+    launches = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(bool(torch.isfinite(chi2_full).all()) and chi2_full.shape[0] == 10,
+          f"global BA: 10 finite LM iterations, chi2 {float(chi2_full[0]):.3f} -> {float(chi2_full[-1]):.3f}")
+    print(f"global BA at the default capacities (64-keyframe, 8192-point buckets): one chunk {gba_abort_ms:.1f} ms, "
+          f"two chunks {gba_ms:.1f} ms (CUDA events, profiled); {launches} kernel launches, {waits} host waits "
+          f"(sync debug mode) in all, {launches / 2:.0f} launches per chunk", flush=True)
+    return {"revisit_on_keyframe_ms": full["on_keyframe_ms"], "essential_graph_ms": full["essential_graph_ms"],
+            "gba_one_chunk_ms": gba_abort_ms, "gba_two_chunks_ms": gba_ms, "gba_launches": launches,
+            "gba_host_waits": waits, "revisit_card_vs_cpu": d, "revisit_drift": [before, after], "merged": merged}
+
+
+def reloc_phase(dev, cuda_match, read_launches, reset_launches):
+    """Phase 12: ``tests/test_reloc.py:37``'s relocalization on the card:
+    the widened round must reach >= 50 inliers within 0.02 m of the truth,
+    with K2 launched (its launches read right after) and held to its plain
+    version at these shapes.  Returns (launches, the K2 case, ms)."""
+    from tpuslam_torch.frontend.relocalize import relocalize
+
+    cam, cfg, m, vocab, frame, T_true = reloc_scene(dev)
+    reset_launches()
+    res = relocalize(m, frame, cam, vocab, cfg, n_kf=1)
+    launches = read_launches()
+    check(res is not None, "relocalization on the card succeeded")
+    T_opt, _, n_in = res
+    err = float(np.linalg.norm(T_opt.cpu().numpy()[:3, 3] - T_true[:3, 3]))
+    check(n_in >= 50 and err < 0.02, f"relocalization: {n_in} inliers (>= 50), position error {err:.4f} m (< 0.02)")
+    check(launches["hamming_top2"] >= 1, f"relocalization launched hamming_top2 {launches['hamming_top2']} time(s)")
+    has_pt = (m.kf_pt[0] >= 0) & m.kf_kp_valid[0]
+    reloc_ms = event_ms(lambda: relocalize(m, frame, cam, vocab, cfg, n_kf=1), reps=3)
+    print(f"relocalization: {reloc_ms:.1f} ms (CUDA events around one call)", flush=True)
+    return launches, (frame.desc, m.kf_desc[0], has_pt), reloc_ms
+
+
+def detector_card_vs_cpu(tr):
+    """Phase 13's map, the loop detector on the card against the CPU: the
+    newest keyframe's word ids (exact; ties are common and both argmaxes
+    take the first word), its BoW row and its BoW scores against every
+    keyframe (within 1e-6), the shared-word counts and covisibility row
+    (exact), and the gates a fresh detector past the 10-keyframe rules
+    reaches on that keyframe (the same).  Returns the largest score
+    difference."""
+    import dataclasses
+
+    from tpuslam_torch.map import mapstate as ms
+    from tpuslam_torch.place import loop as lp
+    from tpuslam_torch.place import vocab as vb
+
+    slot, voc_g = tr.ref_kf, tr.loop_closer.vocab
+    maps = {"card": tr.map, "cpu": ms.map_from_numpy(ms.map_to_numpy(tr.map), "cpu")}
+    vocs = {"card": voc_g, "cpu": vb.Vocabulary(centers_pm1=voc_g.centers_pm1.cpu())}
+    cams = {"card": tr.cam, "cpu": dataclasses.replace(tr.cam, dist=tr.cam.dist.cpu())}
+    out = {}
+    for side, m in maps.items():
+        words = vb.assign_words(vocs[side], m.kf_desc[slot], m.kf_kp_valid[slot])
+        bow = vb.bow_vector(vocs[side], m.kf_desc[slot], m.kf_kp_valid[slot])
+        stats = lp._loop_candidate_stats(m, bow, slot)
+        lc = lp.LoopCloser(vocs[side], cams[side], tr.cfg)
+        lc.kf_seen = lc.last_loop_kf_seen + 100
+        lc.on_keyframe(m, slot, max(tr.n_kf, 10))
+        out[side] = ([x.cpu() for x in (words, bow) + tuple(stats)], dict(lc.gates),
+                     [st for _, st in lc.prev_groups])
+    (wg, bg, sg, cg, rg, vg), gates_g, streak_g = out["card"]
+    (wc, bc, sc, cc, rc, vc), gates_c, streak_c = out["cpu"]
+    sims = vb._pm1(maps["cpu"].kf_desc[slot]) @ vocs["cpu"].centers_pm1.T
+    best = (sims == sims.max(dim=1, keepdim=True).values).sum(dim=1)
+    ties = int(((best > 1) & maps["cpu"].kf_kp_valid[slot]).sum())
+    check(torch.equal(wg, wc), f"word ids of keyframe slot {slot}, card vs CPU: equal ({ties} of "
+          f"{wc.shape[0]} keypoints tie for the best word)")
+    db, ds = float((bg - bc).abs().max()), float((sg - sc).abs().max())
+    check(db <= 1e-6 and ds <= 1e-6, f"BoW row and scores, card vs CPU: within 1e-6 ({db:.1e}, {ds:.1e})")
+    check(torch.equal(cg, cc) and torch.equal(rg, rc) and torch.equal(vg, vc),
+          "shared-word counts, covisibility row and kf_valid, card vs CPU: equal")
+    check(gates_g == gates_c and streak_g == streak_c,
+          f"loop detector on slot {slot}, card vs CPU: gates {gates_g}, streaks {streak_g} (CPU {gates_c}, {streak_c})")
+    return ds
+
+
+def loops_replay(golden, dev, rendered, read_launches):
+    """Phase 13: phase 7's 100 frames again with loop closing on (the
+    default config), gated as phase 7 against ``JAX_GOLDEN_LOOPS_100``, with
+    as many loops as the JAX run and the same keyframes reaching each gate
+    of the detector.  Returns the report line, the tracker and the launches."""
+    rep, tr = golden.run_golden(LOOPS_FRAMES, dev, count_waits=True, rendered=rendered, loops=True)
+    launches = read_launches()
+    line = {k: rep.get(k) for k in GOLDEN_KEYS + ("loops", "loop_gates")}
+    line["loop_ms_per_keyframe"] = {k: v for k, v in rep["kf_stage_ms"].items() if k.startswith(("loop_", "kf_loop"))}
+    line.update(wait_summary(tr))
+    print("loops " + json.dumps(line), flush=True)
+    ref = JAX_GOLDEN_LOOPS_100
+    replay_gates("loops", rep, ref, LOOPS_FRAMES)
+    check(rep["loops"] == ref["loops"], f"loops: {rep['loops']} loops closed, JAX package {ref['loops']}")
+    print(f"loops: keyframes reaching each detector gate {rep['loop_gates']}, JAX package {ref['loop_gates']}",
+          flush=True)
+    line["detector_score_diff"] = detector_card_vs_cpu(tr)
+    return line, tr, launches
 
 
 def random_descriptors(n, seed, device):
@@ -666,7 +1050,8 @@ def main() -> int:
 
     # --- 7. golden replay at full width ----------------------------------------------
     reset_launches()
-    gold, tr_gold, gold_frames = golden_replay(golden, dev)
+    gold, tr_gold, gold_rendered = golden_replay(golden, dev)
+    gold_frames = gold_rendered.frames
     launches_golden = read_launches()
     print(f"launches: slice {launches}, small replay {launches_small}, golden replay {launches_golden}",
           flush=True)
@@ -722,6 +1107,32 @@ def main() -> int:
     k1_err = max(k1_err, hold_k1({"stereo_left0": (pyr, dims), "stereo_right0": (pyr_r, dims)}, cuda_fast, orb))
     k2_err = max(k2_err, hold_k2({"stereo_frame_vs_ref_kf": k2_in}, cuda_match))
     phase_s["stereo_replay"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # --- 11. loop closure on the drifted revisit ----------------------------------
+    loop = loop_closure_phase(dev)
+    phase_s["loop_closure"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # --- 12. relocalization ---------------------------------------------------------
+    launches_reloc, k2_reloc, reloc_ms = reloc_phase(dev, cuda_match, read_launches, reset_launches)
+    print(f"launches: relocalization {launches_reloc}", flush=True)
+    k2_err = max(k2_err, hold_k2({"reloc_frame_vs_candidate_kf": k2_reloc}, cuda_match))
+    phase_s["relocalization"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # --- 13. the golden replay with loop closing on -----------------------------------
+    reset_launches()
+    loops, tr_loops, launches_loops = loops_replay(golden, dev, gold_rendered, read_launches)
+    print(f"launches: loops replay {launches_loops}", flush=True)
+    check(launches_loops["fast_nms"] == LOOPS_FRAMES,
+          f"fast_nms launched {launches_loops['fast_nms']} times in {LOOPS_FRAMES} loops-on frames")
+    check(launches_loops["hamming_top2"] >= loops["tracked"] - 1,
+          f"hamming_top2 launched {launches_loops['hamming_top2']} times, once per hot-path frame")
+    (pyr, dims), k2_in = tracker_kernel_cases(tr_loops, gold_frames[0])
+    k1_err = max(k1_err, hold_k1({"loops_frame0": (pyr, dims)}, cuda_fast, orb))
+    k2_err = max(k2_err, hold_k2({"loops_frame_vs_ref_kf": k2_in}, cuda_match))
+    phase_s["loops_replay"] = time.perf_counter() - t_phase
     print("phase seconds " + json.dumps(phase_s), flush=True)
 
     # --- 11. report -------------------------------------------------------------
@@ -735,12 +1146,13 @@ def main() -> int:
         "golden_frames_per_s": gold["frames_per_s"], "flagship_frames_per_s": flag["frames_per_s"],
         "rgbd_frames_per_s": rgbd["frames_per_s"], "stereo_frames_per_s": ster["frames_per_s"],
         "segment_planes_ms_per_frame": seg_ms, "stereo_matches_ms_per_frame": match_ms,
-        "phase_s": phase_s, "total_s": sum(phase_s.values()),
+        "loops_frames_per_s": loops["frames_per_s"], "loops": loops["loops"], "relocalization_ms": reloc_ms,
+        **loop, "phase_s": phase_s, "total_s": sum(phase_s.values()),
     }))
     kernels = [
         {"name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
          "launches": sum(n[name] for n in (launches, launches_small, launches_golden, launches_flag,
-                                           launches_rgbd, launches_ster)),
+                                           launches_rgbd, launches_ster, launches_reloc, launches_loops)),
          "max_abs_err": err, **k}
         for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
     ]

@@ -38,14 +38,29 @@ report the trajectory error without scale (the maps are metric) and add
 ``stereo_factors`` (valid stereo factors over the local BAs);
 ``--rgbd`` adds ``online_planes`` (plane detections over the frames),
 ``--stereo`` ``stereo_matches`` (the median per frame of left keypoints with
-a stereo match).  ``chip_smoke.py``'s ``JAX_RGBD_200`` and
-``JAX_STEREO_100`` hold the runs of ``--rgbd --frames 200`` and
+a stereo match).  ``chip_smoke.py``'s ``JAX_RGBD_100`` and
+``JAX_STEREO_100`` hold the runs of ``--rgbd --frames 100`` and
 ``--stereo --frames 100``.
+
+``--loops`` turns loop closing on, the ``Tracker``'s default: points-only
+runs with the default ``FeatureFlags()``, the other modes with their flags
+and the loop flag on; the place-recognition codebook is the seeded
+1024-word one that ``mono_icl`` gets without ``--vocab``.  The report adds
+``loops`` (closures accepted) and ``loop_gates``: how many keyframes reached
+each gate of the loop detector (``stats``: past the 10-keyframe and
+refractory rules; ``covisible``: with a covisible neighbour; ``words``: a
+candidate sharing words; ``score``: a candidate past the shared-word and
+score gates; ``consistent``: a candidate consistent over the covisibility
+groups; ``sim3``: a Sim3 accepted), read from the detector's debug lines, and
+``loop_closures``: the frame ids of each closure's two keyframes.
+``chip_smoke.py``'s ``JAX_GOLDEN_LOOPS_100`` holds the run of ``--loops
+--frames 100``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import tempfile
@@ -66,6 +81,7 @@ from tpuslam.io.trajectory import ate_rmse  # noqa: E402
 from tpuslam.graph import lm as jlm  # noqa: E402
 from tpuslam.kernels import stereo as jks  # noqa: E402
 from tpuslam.map import mapstate as jms  # noqa: E402
+from tpuslam.place import loop as jloop  # noqa: E402
 from tpuslam.semantic.detect import detect_planes_online, read_offline_cuboids, read_offline_planes  # noqa: E402
 
 GOLDEN_FRAMES = 560
@@ -146,6 +162,7 @@ def main(argv=None):
                       help="mono_icl --planes --objects: offline plane and cuboid detections")
     mode.add_argument("--rgbd", action="store_true", help="rgbd_icl --planes online --objects")
     mode.add_argument("--stereo", action="store_true", help="stereo_kitti's configuration on a rendered pair")
+    ap.add_argument("--loops", action="store_true", help="loop closing on (the Tracker's default)")
     args = ap.parse_args(argv)
     if args.small:
         cspec = synth.CameraSpec(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
@@ -156,7 +173,31 @@ def main(argv=None):
     sensor = "rgbd" if args.rgbd else "stereo" if args.stereo else "mono"
     flags = (flagship_flags() if args.flagship else rgbd_flags() if args.rgbd
              else FeatureFlags(enable_loop_closing=False))
+    if args.loops:
+        flags = dataclasses.replace(flags, enable_loop_closing=True)
     cfg = SlamConfig().replace(sensor=sensor, caps=caps, orb=orb, flags=flags)
+    debug_path = ""
+    if args.loops:
+        # the detector writes one line per gate a keyframe reaches
+        debug_path = os.path.join(tempfile.mkdtemp(prefix="golden_loop_"), "loop.log")
+        jloop._DEBUG_PATH = debug_path
+        stats = jloop._loop_candidate_stats
+        n_stats = []
+
+        def counted_stats(*a, **kw):
+            n_stats.append(1)
+            return stats(*a, **kw)
+
+        jloop._loop_candidate_stats = counted_stats
+        correct = jloop.LoopCloser._correct_loop
+        closures = []
+
+        def recorded_correct(self, m, kf_cur, kf_loop, *a, **kw):
+            fids = np.asarray(m.kf_frame_id)
+            closures.append([int(fids[kf_cur]), int(fids[kf_loop])])
+            return correct(self, m, kf_cur, kf_loop, *a, **kw)
+
+        jloop.LoopCloser._correct_loop = recorded_correct
     det_dir = tempfile.mkdtemp(prefix="golden_det_") if args.flagship or args.rgbd else ""
     frames, poses_wc, depths, rights = render(args.frames, cspec, det_dir=det_dir, depth=args.rgbd,
                                               right=args.stereo, planes=args.flagship)
@@ -221,6 +262,20 @@ def main(argv=None):
         extra["online_planes"] = online_planes
     if args.stereo:
         extra["stereo_matches"] = float(np.median(n_matched))
+    if args.loops:
+        lines = open(debug_path).read().splitlines() if os.path.exists(debug_path) else []
+        gate3 = [ln for ln in lines if ln.startswith("  gate3")]
+        extra["loops"] = tracker.n_loops
+        extra["loop_closures"] = closures  # [current keyframe's frame id, loop keyframe's]
+        extra["loop_gates"] = {
+            "stats": len(n_stats),
+            "covisible": sum(ln.startswith("fid=") for ln in lines),
+            "words": sum(ln.startswith("  gate2") for ln in lines),
+            "score": len(gate3),
+            "consistent": sum(not ln.endswith("consistent=[]") for ln in gate3),
+            "sim3": sum(ln.startswith("  sim3 cand=") and ln.endswith("ok=True") for ln in lines),
+        }
+        extra["loop_stage_ms"] = {k: v for k, v in sorted(tracker.loop_closer.stage_ms.items())}
     rep = {
         "frames": len(frames),
         "tracked": len(tracker.trajectory),

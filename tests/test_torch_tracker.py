@@ -34,6 +34,7 @@ from tpuslam_torch.apps.common import corrected_trajectory
 from tpuslam_torch.core import config as tcfg
 from tpuslam_torch.core.camera import Camera
 from tpuslam_torch.frontend import tracking as ttr
+from tpuslam_torch.place.vocab import random_vocabulary
 
 N_FRAMES = 14
 N_FEAT = 512
@@ -91,14 +92,20 @@ def test_tracker_refuses_what_the_port_lacks():
     c = sc.CSPEC
     cam = Camera.make(c.fx, c.fy, c.cx, c.cy, "cpu", width=c.width, height=c.height)
     base = _cfg(tcfg)
-    with pytest.raises(NotImplementedError):  # loop closing is not ported
-        ttr.Tracker(cam, base.replace(flags=tcfg.FeatureFlags()), device="cpu")
+    # loop closing is ported: the default flags construct, with the seeded codebook
+    tt = ttr.Tracker(cam, base.replace(flags=tcfg.FeatureFlags()), device="cpu")
+    assert tt.loop_closer is not None and tt.loop_closer.vocab.n_words == base.caps.vocab_words
+    with pytest.raises(NotImplementedError):  # localization mode is not ported
+        tt.set_localization_mode(True)
+    with pytest.raises(ValueError):  # a codebook must fill the map's BoW rows
+        ttr.Tracker(cam, base.replace(flags=tcfg.FeatureFlags()), device="cpu",
+                    vocab=random_vocabulary(base.caps.vocab_words // 2, device="cpu"))
     # the depth sensors are ported: both construct
     for sensor in ("rgbd", "stereo"):
         assert ttr.Tracker(cam, base.replace(sensor=sensor), device="cpu").cfg.sensor == sensor
-    # planes and objects are ported: every other flag is accepted
-    every = {f.name: True for f in dataclasses.fields(tcfg.FeatureFlags) if f.name != "enable_loop_closing"}
-    ttr.Tracker(cam, base.replace(flags=tcfg.FeatureFlags(enable_loop_closing=False, **every)), device="cpu")
+    # planes and objects are ported: every flag is accepted
+    every = {f.name: True for f in dataclasses.fields(tcfg.FeatureFlags)}
+    ttr.Tracker(cam, base.replace(flags=tcfg.FeatureFlags(**every)), device="cpu")
     tt = ttr.Tracker(cam, base.replace(orb=tcfg.OrbConfig(n_features=256)), device="cpu")
     with pytest.raises(ValueError):
         tt.process_image(np.zeros((c.height, c.width), np.uint8), 0)

@@ -1,5 +1,5 @@
 """The app loop and its report (port of ``tpuslam/apps/common.py``:
-``run_loop``, ``_corrected_trajectory`` and ``finish``).
+``build_vocab``, ``run_loop``, ``_corrected_trajectory`` and ``finish``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,36 @@ import torch
 from ..core import geometry as geo
 from ..frontend.tracking import Tracker
 from ..io.trajectory import ate_rmse, save_cuboids, save_planes, save_tum
+from ..kernels.orb import OrbExtractor
+from ..place import vocab as vb
 from ..utils.profiler import Profiler
+
+
+def build_vocab(name: str, cfg, device, sample_grays=None):
+    """Resolve a ``--vocab`` value into (vocabulary or None, config), as the
+    reference's ``build_vocab`` (common.py:102-143): ``''`` or ``'lsh'``
+    give None (the Tracker's seeded codebook); ``'train'`` runs binary
+    k-means over the ORB descriptors of every 12th frame of
+    ``sample_grays``, at most 48 frames (strided: a vocabulary trained on
+    the first seconds only describes one view direction).  An ORBvoc path
+    needs the DBoW2 loaders, which are not ported."""
+    if not name or name == "lsh":
+        return None, cfg
+    if name != "train":
+        raise NotImplementedError(f"--vocab {name!r}: loading ORBvoc files (place/dbow_compat.py) is not ported")
+    if sample_grays is None:
+        raise ValueError("--vocab train needs sequence frames to sample")
+    descs, extractor = [], None
+    for i, gray in enumerate(sample_grays):
+        if len(descs) >= 48:
+            break
+        if i % 12 == 0:
+            g = torch.as_tensor(gray).to(device)
+            if extractor is None:
+                extractor = OrbExtractor(g.shape[0], g.shape[1], device, n_features=cfg.orb.n_features)
+            f = extractor(g.to(torch.float32))
+            descs.append(f.desc[f.valid])
+    return vb.train_kmeans(torch.cat(descs), n_words=cfg.caps.vocab_words), cfg
 
 
 def _stage(gray, device):
@@ -130,8 +159,9 @@ def corrected_trajectory(tracker: Tracker):
 
 
 def finish(tracker: Tracker, frame_times, gt=None, out_dir: str = "", metric: bool = False):
-    """The report of the reference's ``finish``: counts (planes and cuboids
-    among them), frame times, per-keyframe stage ms, and with ``gt``
+    """The report of the reference's ``finish``: counts (planes, cuboids and
+    loops among them), frame times, per-keyframe stage ms (the loop
+    closer's as ``loop_*``), and with ``gt``
     (world->camera poses by frame id) the ATE of the corrected, the raw and
     the live keyframe trajectories, Sim3-aligned, or with ``metric`` (the
     depth sensors' metric maps) SE3-aligned without scale (common.py:365,
@@ -153,6 +183,10 @@ def finish(tracker: Tracker, frame_times, gt=None, out_dir: str = "", metric: bo
             save_planes(os.path.join(out_dir, "PlanePose.txt"), list(m.plane_coef[:tracker.n_plane].cpu().numpy()))
     ft = np.array(frame_times)
     n_created = max(len(tracker._kf_fids), 1)
+    # the loop closer's stages beside the keyframe's, averaged over created keyframes
+    stage_ms = dict(tracker.stage_ms)
+    if tracker.loop_closer is not None:
+        stage_ms.update({f"loop_{k}": v for k, v in tracker.loop_closer.stage_ms.items()})
     report = {
         "frames": len(ft),
         "tracked": len(tracker.trajectory),
@@ -165,7 +199,7 @@ def finish(tracker: Tracker, frame_times, gt=None, out_dir: str = "", metric: bo
         "loops": tracker.n_loops,
         "median_frame_s": float(np.median(ft)) if len(ft) else None,
         "mean_frame_s": float(ft.mean()) if len(ft) else None,
-        "kf_stage_ms": {k: v / n_created for k, v in sorted(tracker.stage_ms.items())},
+        "kf_stage_ms": {k: v / n_created for k, v in sorted(stage_ms.items())},
     }
     if tracker.device.type == "cuda":
         report["kf_stage_device_ms"] = {

@@ -6,6 +6,7 @@
     python -m tpuslam_torch.apps.golden --frames 200 --rgbd       # RGB-D, online planes, objects
     python -m tpuslam_torch.apps.golden --frames 100 --stereo     # stereo, points only
     python -m tpuslam_torch.apps.golden --frames 48 --small --device cpu
+    python -m tpuslam_torch.apps.golden --frames 100 --loops      # loop closing on
 
 The bench's golden trajectory (560 frames, 400 degrees) is rendered on the
 device, truncated to uint8 as the PNG frames of ``write_sequence`` hold it,
@@ -33,11 +34,22 @@ the error without scale (their maps are metric) and the valid stereo factors
 over the local BAs (``stereo_factors``); ``--rgbd`` adds the plane detections
 over the frames (``online_planes``), ``--stereo`` the median per frame of the
 left keypoints with a stereo match (``stereo_matches``).
+
+``--loops`` turns loop closing on in any mode, as every app of the
+reference builds its ``Tracker`` (``FeatureFlags.enable_loop_closing`` is on
+by default): points-only runs with the default ``FeatureFlags()``, the
+other modes with their flags and the loop flag on.  The codebook is the
+seeded 1024-word one that ``mono_icl`` gets without ``--vocab``.  The report
+adds ``loops`` (from ``finish``), the loop closer's stages as ``loop_*`` in
+``kf_stage_ms``, ``loop_gates`` (how many keyframes reached each gate of
+the detector) and ``loop_closures`` (the frame ids of each closure's two
+keyframes).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import NamedTuple, Optional
@@ -87,10 +99,12 @@ class Rendered(NamedTuple):
     right: Optional[torch.Tensor] = None  # (F, H, W) uint8 right view
 
 
-def golden_setup(small: bool = False, flagship: bool = False, rgbd: bool = False, stereo: bool = False):
+def golden_setup(small: bool = False, flagship: bool = False, rgbd: bool = False, stereo: bool = False,
+                 loops: bool = False):
     """(camera spec, config): full width, or the 320x240 / 512-feature cut
     with the capacities of ``tests/test_long_replay.py``; mono points only,
-    the flagship's flags, RGB-D with ``rgbd_icl``'s or stereo points only."""
+    the flagship's flags, RGB-D with ``rgbd_icl``'s or stereo points only;
+    with ``loops``, loop closing on."""
     if small:
         cspec = synth.CameraSpec(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
         caps = Capacities(max_keypoints=512, max_keyframes=256, max_points=8192, local_ba_points=2048)
@@ -99,6 +113,8 @@ def golden_setup(small: bool = False, flagship: bool = False, rgbd: bool = False
         cspec, caps, orb = synth.CameraSpec(), Capacities(), OrbConfig()
     flags = (flagship_flags() if flagship else rgbd_flags() if rgbd
              else FeatureFlags(enable_loop_closing=False))
+    if loops:
+        flags = dataclasses.replace(flags, enable_loop_closing=True)
     sensor = "rgbd" if rgbd else "stereo" if stereo else "mono"
     return cspec, SlamConfig().replace(sensor=sensor, caps=caps, orb=orb, flags=flags)
 
@@ -134,14 +150,15 @@ def render_golden(n_frames: int, cspec, device, cfg=None, depth: bool = False, r
 
 def run_golden(n_frames: int = 200, device="cuda:0", small: bool = False, count_waits: bool = False,
                rendered: Optional[Rendered] = None, flagship: bool = False, rgbd: bool = False,
-               stereo: bool = False):
+               stereo: bool = False, loops: bool = False):
     """Render, track, report.  ``rendered``: what :func:`render_golden`
     returns, to replay instead of rendering on ``device``.  ``flagship``:
     planes and objects; ``rgbd``: RGB-D with online planes and objects;
-    ``stereo``: a stereo pair, points only.  Returns (report, tracker)."""
+    ``stereo``: a stereo pair, points only; ``loops``: loop closing on.
+    Returns (report, tracker)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    cspec, cfg = golden_setup(small, flagship, rgbd, stereo)
+    cspec, cfg = golden_setup(small, flagship, rgbd, stereo, loops)
     if rendered is None:
         rendered = render_golden(n_frames, cspec, device, cfg if flagship or rgbd else None, depth=rgbd,
                                  right=stereo)
@@ -183,6 +200,9 @@ def run_golden(n_frames: int = 200, device="cuda:0", small: bool = False, count_
         rep["online_planes"] = int(torch.stack(online).sum()) if online else 0
     if stereo:
         rep["stereo_matches"] = float(np.median([int(n) for n in tracker.stereo_matches]))
+    if loops:
+        rep["loop_gates"] = dict(tracker.loop_closer.gates)
+        rep["loop_closures"] = [list(c) for c in tracker.loop_closer.closures]
     return rep, tracker
 
 
@@ -195,9 +215,10 @@ def main(argv=None):
     mode.add_argument("--flagship", action="store_true", help="planes and objects (mono_icl --planes --objects)")
     mode.add_argument("--rgbd", action="store_true", help="RGB-D, online planes and objects (rgbd_icl)")
     mode.add_argument("--stereo", action="store_true", help="a stereo pair, points only (stereo_kitti)")
+    ap.add_argument("--loops", action="store_true", help="loop closing on (the Tracker's default)")
     args = ap.parse_args(argv)
     rep, _ = run_golden(args.frames, args.device, args.small, flagship=args.flagship, rgbd=args.rgbd,
-                        stereo=args.stereo)
+                        stereo=args.stereo, loops=args.loops)
     print(json.dumps(rep))
     return rep
 

@@ -1,7 +1,8 @@
 """Local BA: covisibility window -> packed factors -> LM solve -> scatter
 back (port of the local paths of ``tpuslam/backend/local_ba.py``: points
 only, mono or with the stereo bundle of the depth sensors, and the
-heterogeneous graph with planes and cuboids).
+heterogeneous graph with planes and cuboids), and the global BA that
+follows a loop closure (``run_global_ba``).
 
 The window follows Optimizer::LocalBundleAdjustment and
 LocalBACameraPlaneCuboids (Optimizer.cc:461-560, 1994-2140): optimized
@@ -14,6 +15,7 @@ point order and owned points as the reference.
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple
 
 import torch
@@ -281,3 +283,121 @@ def run_local_ba(m: ms.MapState, center_kf: int, cam, cfg, stats: dict = None):
     )
     accept = torch.isfinite(chi2s[-1]) & (chi2s[-1] <= 1.5 * chi2s[0] + 1e-3)
     return unpack_local_ba(m, pack, state_opt, data_out, stereo_shared=depth, accept=accept), chi2s
+
+
+def pack_global_ba(m: ms.MapState, cam, n_kfs: int = 64, n_pts: int = 8192, use_stereo: bool = False) -> LocalBAPack:
+    """The BA problem over keyframe slots ``[0, n_kfs)`` and the ``n_pts``
+    best-observed points (GlobalBundleAdjustemnt, Optimizer.cc:46-54:
+    every keyframe but slot 0 free).  Points are ranked by observation
+    count, the lower slot first among ties (``topk_stable``, as
+    ``lax.top_k``), so a truncating budget keeps the best-constrained ones;
+    the rest are re-anchored after the solve (:func:`_reanchor_points`)."""
+    K, N = m.kf_pt.shape
+    P = m.pt_pos.shape[0]
+    dev = m.kf_pt.device
+    window_ids = torch.arange(n_kfs, device=dev)
+    window_mask = m.kf_valid[:n_kfs]
+    pose_fixed = (window_ids == 0) | ~window_mask
+
+    obs_rank = torch.where(m.pt_valid, ms.point_obs_counts(m).to(torch.float32), -1.0)
+    sel_val, point_ids = topk_stable(obs_rank, n_pts)
+    point_mask = sel_val > 0
+    inv_map = ms.scatter_last(
+        torch.full((P + 1,), -1, dtype=torch.int64, device=dev),
+        torch.where(point_mask, point_ids, P), torch.arange(n_pts, device=dev),
+    )[:P]
+
+    kf_local = torch.arange(n_kfs, device=dev).repeat_interleave(N)
+    kp = torch.arange(N, device=dev).repeat(n_kfs)
+    pt_gl = m.kf_pt[kf_local, kp]
+    pt_lc = inv_map[pt_gl.clamp(0, P - 1).long()]
+    valid = window_mask[kf_local] & m.kf_kp_valid[kf_local, kp] & (pt_gl >= 0) & (pt_lc >= 0)
+    uv = m.kf_uv[kf_local, kp]
+    inv_s2 = _scale_inv_sigma2(m.kf_octave[kf_local, kp])
+    stereo = None
+    if use_stereo:
+        ur = m.kf_ur[kf_local, kp]
+        stereo = lm.StereoFactors(kf=kf_local, pt=pt_lc.clamp(min=0), uvr=torch.cat([uv, ur[:, None]], dim=-1),
+                                  inv_sigma2=inv_s2, valid=valid & (ur >= 0))
+        valid = valid & (ur < 0)
+    mono = lm.MonoFactors(kf=kf_local, pt=pt_lc.clamp(min=0), uv=uv, inv_sigma2=inv_s2, valid=valid)
+    state = lm.BAState(poses=m.kf_pose[window_ids], points=m.pt_pos[point_ids], planes=m.plane_coef[:1],
+                       cuboid_pose=m.cub_pose[:1], cuboid_scale=m.cub_scale[:1])
+    data = lm.make_ba_data(n_kfs, n_pts, 1, 1, cam, mono=mono, stereo=stereo, pose_fixed=pose_fixed,
+                           point_active=point_mask)
+    return LocalBAPack(state=state, data=data, window_ids=window_ids, window_mask=window_mask,
+                       point_ids=point_ids, point_mask=point_mask)
+
+
+def _ba_bucket(n_needed: int, base: int, cap: int) -> int:
+    """The smallest power-of-two multiple of ``base`` that covers
+    ``n_needed``, at most ``cap``: the global BA's keyframe and point
+    budgets (they decide what the pack takes, not only its padding)."""
+    b = base
+    while b < n_needed and b < cap:
+        b *= 2
+    return min(b, cap)
+
+
+def _reanchor_points(m: ms.MapState, poses_old, skip_mask) -> ms.MapState:
+    """Move the points the global BA did not optimize through their
+    reference keyframe's pose change, X' = T_new^-1 (T_old X)
+    (LoopClosing.cc:709-736)."""
+    K = m.kf_pose.shape[0]
+    ref = m.pt_first_kf.clamp(0, K - 1).long()
+    X_cam = geo.se3_apply(poses_old[ref], m.pt_pos)
+    T_new = m.kf_pose[ref]
+    X_new = torch.einsum("pji,pj->pi", T_new[:, :3, :3], X_cam - T_new[:, :3, 3])
+    move = m.pt_valid & ~skip_mask & m.kf_valid[ref]
+    return m.replace(pt_pos=torch.where(move[:, None], X_new, m.pt_pos))
+
+
+def run_global_ba(m: ms.MapState, cam, cfg, n_iters: int = 10, n_kf: int = 0, should_abort=None, chunk: int = 5,
+                  fetch=None):
+    """Full-map BA after a loop closure (RunGlobalBundleAdjustment,
+    LoopClosing.cc:645-749), synchronous.  The keyframe window is bucketed
+    up from ``caps.global_ba_keyframes`` to cover the ``n_kf`` slots in use
+    (read from the map when 0), and the point budget up from
+    ``caps.global_ba_points`` to cover the valid points; a truncating
+    budget is logged and its remainder re-anchored.
+
+    ``should_abort``: a zero-argument callable polled between chunks of
+    ``chunk`` LM iterations (the reference's ``mbStopGBA``); on an abort the
+    partial state is written back.  The reference's distributed solvers
+    are not ported; this is its local path (as ``TPUSLAM_FORCE_LOCAL_BA``
+    selects).  ``fetch``: reads device tensors to numpy in one copy (the
+    Tracker's counted reads).  Returns (map, chi2 of each iteration's trial
+    step)."""
+    fetch = fetch or ms.read_numpy
+    caps = cfg.caps
+    kf_valid_np, n_valid = fetch((m.kf_valid, m.pt_valid.sum()))
+    if n_kf <= 0:
+        n_kf = int(kf_valid_np.nonzero()[0].max()) + 1 if kf_valid_np.any() else 0
+    n_kfs = _ba_bucket(n_kf, caps.global_ba_keyframes, caps.max_keyframes)
+    n_valid_pts = int(n_valid)
+    n_pts = _ba_bucket(n_valid_pts, caps.global_ba_points, m.pt_pos.shape[0])
+    if n_valid_pts > n_pts:
+        logging.getLogger("tpuslam_torch").warning(
+            "global BA truncating points: %d valid > %d budget; the rest is re-anchored through reference "
+            "keyframes", n_valid_pts, n_pts)
+    poses_old = m.kf_pose
+    depth = cfg.sensor in ("rgbd", "stereo")
+    pack = pack_global_ba(m, cam, n_kfs=n_kfs, n_pts=n_pts, use_stereo=depth)
+    w = lm.BAWeights.from_config(cfg.ba)
+    if should_abort is not None:
+        state_opt, chi2s, done = pack.state, [], 0
+        while done < n_iters:
+            step = min(chunk, n_iters - done)
+            state_opt, c = lm.lm_iterations(state_opt, pack.data, w, step)
+            chi2s.append(c)
+            done += step
+            if done < n_iters and should_abort():
+                break
+        chi2s = torch.cat(chi2s)
+    else:
+        state_opt, chi2s = lm.lm_iterations(pack.state, pack.data, w, n_iters)
+    m = unpack_local_ba(m, pack, state_opt, pack.data, stereo_shared=depth)
+    P = m.pt_pos.shape[0]
+    in_opt = torch.zeros(P + 1, dtype=torch.bool, device=m.pt_pos.device).index_fill(
+        0, torch.where(pack.point_mask, pack.point_ids, P), True)[:P]
+    return _reanchor_points(m, poses_old, in_opt), chi2s

@@ -168,18 +168,20 @@ def insert_triangulated(m: ms.MapState, kf1: int, pos, kp2, chosen, nb_ids, avai
     return m, torch.sum(good).to(torch.int32)
 
 
-def fuse_into_keyframe(m: ms.MapState, kf: int, K, radius: float = 3.0):
-    """Project the map points into keyframe ``kf`` and fuse
-    (ORBmatcher::Fuse): a free matching keypoint adopts the point; a
-    keypoint bound to another point merges the two, the better-observed
-    winning (MapPoint::Replace: links redirected, loser invalidated, its
-    found/visible counters transferred)."""
+def fuse_into_keyframe(m: ms.MapState, kf: int, K, src_mask=None, radius: float = 3.0):
+    """Project the map points (those in ``src_mask``, or all) into keyframe
+    ``kf`` and fuse (ORBmatcher::Fuse): a free matching keypoint adopts the
+    point; a keypoint bound to another point merges the two, the
+    better-observed winning (MapPoint::Replace: links redirected, loser
+    invalidated, its found/visible counters transferred)."""
     P = m.pt_pos.shape[0]
     dev = m.kf_pt.device
     pc = geo.se3_apply(m.kf_pose[kf], m.pt_pos)
     q = pc @ K.T
     uv = q[:, :2] / torch.where(torch.abs(q[:, 2:3]) < 1e-9, 1e-9, q[:, 2:3])
     visible = m.pt_valid & (pc[:, 2] > 0)
+    if src_mask is not None:
+        visible = visible & src_mask
     kf_row = m.kf_pt[kf]
     bound_here = torch.zeros(P + 1, dtype=torch.bool, device=dev).index_fill(
         0, torch.where(kf_row >= 0, kf_row, P).long(), True)[:P]

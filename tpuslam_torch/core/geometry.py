@@ -1,5 +1,5 @@
-"""Batched SE3 / SO3, plane and cuboid geometry (port of
-``tpuslam/core/geometry.py`` but its Sim3 part).
+"""Batched SE3 / SO3, Sim3, plane and cuboid geometry (port of
+``tpuslam/core/geometry.py``).
 
 Same conventions as the reference: ``(..., 4, 4)`` homogeneous matrices
 mapping source to destination frame, se3 tangents ``[omega, upsilon]``
@@ -67,6 +67,18 @@ def se3_from_Rt(R, t):
     T[..., :3, 3] = t
     T[..., 3, 3].fill_(1.0)  # a kernel; assigning a Python number copies from the host
     return T
+
+
+def se3_identity(batch=(), dtype=torch.float32, device=None):
+    return torch.eye(4, dtype=dtype, device=device).expand(*batch, 4, 4)
+
+
+def se3_R(T):
+    return T[..., :3, :3]
+
+
+def se3_t(T):
+    return T[..., :3, 3]
 
 
 def se3_exp(xi):
@@ -165,6 +177,84 @@ def se3_log(T):
     w = so3_log(T[..., :3, :3])
     u = _matvec(_so3_left_jacobian_inv(w), T[..., :3, 3])
     return torch.cat([w, u], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sim3 (loop closing), stored as (..., 4, 4) with sR top-left
+# ---------------------------------------------------------------------------
+
+
+def sim3_from_sRt(s, R, t):
+    return se3_from_Rt(s[..., None, None] * R, t)
+
+
+def sim3_scale(S):
+    return _vnorm(S[..., :3, 0])
+
+
+def sim3_R(S):
+    return S[..., :3, :3] / sim3_scale(S)[..., None, None]
+
+
+def sim3_inv(S):
+    s = sim3_scale(S)
+    Rt = sim3_R(S).transpose(-1, -2)
+    s_inv = 1.0 / s
+    return sim3_from_sRt(s_inv, Rt, -s_inv[..., None] * _matvec(Rt, S[..., :3, 3]))
+
+
+def sim3_apply(S, p):
+    return torch.einsum("...ij,...j->...i", S[..., :3, :3], p) + S[..., :3, 3]
+
+
+def sim3_log(S):
+    """Sim3 log -> ``[omega(3), upsilon(3), sigma(1)]`` (..., 7)."""
+    sigma = torch.log(sim3_scale(S))
+    w = so3_log(sim3_R(S))
+    u = torch.linalg.solve(_sim3_W(w, sigma), S[..., :3, 3:4])[..., 0]
+    return torch.cat([w, u, sigma[..., None]], dim=-1)
+
+
+def sim3_exp(xi):
+    """Inverse of :func:`sim3_log`."""
+    w, u, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return sim3_from_sRt(torch.exp(sigma), so3_exp(w), _matvec(_sim3_W(w, sigma), u))
+
+
+def _sim3_W(w, sigma):
+    """Sim3 translation matrix W = C I + A hat(w) + B hat(w)^2 (Strasdat's
+    closed form, as g2o's sim3), with the small-angle and small-scale
+    branches selected by ``where``."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    s = torch.exp(sigma)
+    Wm = so3_hat(w)
+    W2 = Wm @ Wm
+    eps = 1e-5
+    small_sigma = torch.abs(sigma) < eps
+    small_theta = theta < eps
+    sigma_safe = torch.where(small_sigma, 1.0, sigma)
+    theta_safe = torch.where(small_theta, 1.0, theta)
+    theta2_safe = torch.where(small_theta, 1.0, theta2)
+
+    # sigma ~ 0: the SE3 left-Jacobian coefficients
+    A_s0 = torch.where(small_theta, 0.5, (1.0 - torch.cos(theta_safe)) / theta2_safe)
+    B_s0 = torch.where(small_theta, 1.0 / 6.0, (theta_safe - torch.sin(theta_safe)) / (theta2_safe * theta_safe))
+    C_s0 = torch.ones_like(sigma)
+    C_g = (s - 1.0) / sigma_safe
+    # theta ~ 0
+    A_t0 = ((sigma_safe - 1.0) * s + 1.0) / (sigma_safe * sigma_safe)
+    B_t0 = ((0.5 * sigma_safe * sigma_safe - sigma_safe + 1.0) * s - 1.0) / (sigma_safe**3)
+    a_ = s * torch.sin(theta_safe)
+    b_ = s * torch.cos(theta_safe)
+    c_ = theta2_safe + sigma_safe * sigma_safe
+    A_g = (a_ * sigma_safe + (1.0 - b_) * theta_safe) / (theta_safe * c_)
+    B_g = (C_g - ((b_ - 1.0) * sigma_safe + a_ * theta_safe) / c_) / theta2_safe
+
+    A = torch.where(small_sigma, A_s0, torch.where(small_theta, A_t0, A_g))
+    B = torch.where(small_sigma, B_s0, torch.where(small_theta, B_t0, B_g))
+    C = torch.where(small_sigma, C_s0, C_g)
+    return C[..., None, None] * _eye3_like(Wm) + A[..., None, None] * Wm + B[..., None, None] * W2
 
 
 def se3_exp_norollpitch(xi):

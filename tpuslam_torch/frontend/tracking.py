@@ -13,9 +13,10 @@ host can enqueue the next frame from this frame's device outputs.
 ``Tracker`` is the host state machine every app drives: monocular or
 depth (RGB-D, stereo) initialization, the pipelined hot path, the stereo
 entry point, keyframe insertion with close-depth densification and its
-semantic step (the metric rescale, plane and cuboid association) and the
+semantic step (the metric rescale, plane and cuboid association), the
 local mapping step (point culling, triangulation, fusion, local BA,
-keyframe culling).
+keyframe culling), loop closing with its global BA, and relocalization
+against the keyframe database.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ..backend import mapping as bm
-from ..backend.local_ba import run_local_ba
+from ..backend.local_ba import run_global_ba, run_local_ba
 from ..core import geometry as geo
 from ..core.camera import Camera, backproject, camera_matrix, undistort_points
 from ..core.config import SlamConfig
@@ -38,8 +39,11 @@ from ..kernels import match as km
 from ..kernels.orb import Features, OrbExtractor, topk_stable
 from ..kernels.stereo import compute_stereo_matches
 from ..map import mapstate as ms
+from ..place.loop import LoopCloser
+from ..place.vocab import random_vocabulary, update_kf_bow
 from ..semantic import associate as sa
 from .initializer import initialize_two_view, ransac_samples
+from .relocalize import relocalize
 
 
 class Frame(NamedTuple):
@@ -401,22 +405,28 @@ class Tracker:
     enqueued from frame n-1's device outputs before frame n-1's scalars are
     read back, so the only wait per tracked frame is on the previous
     frame's copy.  Entry points run on ``device`` (``cuda:0`` unless the
-    caller asks for the CPU).  Every feature flag is accepted but loop
-    closing; ``associate_point_with_object`` and
-    ``build_worldframe_on_ground`` are read nowhere, as in the reference.
+    caller asks for the CPU).  Every feature flag is accepted;
+    ``associate_point_with_object`` and ``build_worldframe_on_ground`` are
+    read nowhere, as in the reference.  With ``enable_loop_closing`` (the
+    default) every keyframe gets its BoW row, the loop closer runs after
+    each keyframe's mapping, and a LOST tracker with more than 5 keyframes
+    relocalizes against the keyframe database.
 
-    Not ported yet: loop closing and relocalization against a BoW database,
-    localization mode, checkpoints."""
+    Not ported yet: localization mode, checkpoints."""
 
     NOT_INITIALIZED = 0
     OK = 1
     LOST = 2
 
-    def __init__(self, cam: Camera, cfg: SlamConfig, device="cuda:0"):
+    def __init__(self, cam: Camera, cfg: SlamConfig, device="cuda:0", vocab=None):
+        """``vocab``: the place-recognition codebook (``place/vocab.py``), a
+        trained one or None for the seeded one; its word count must equal
+        ``cfg.caps.vocab_words`` (the width of the map's BoW rows)."""
         if cfg.sensor not in ("mono", "rgbd", "stereo"):
             raise ValueError(f"sensor {cfg.sensor!r}: one of mono, rgbd, stereo")
-        if cfg.flags.enable_loop_closing:
-            raise NotImplementedError("loop closing is not ported; pass FeatureFlags(enable_loop_closing=False)")
+        if vocab is not None and vocab.n_words != cfg.caps.vocab_words:
+            raise ValueError(f"vocabulary has {vocab.n_words} words but caps.vocab_words={cfg.caps.vocab_words}; "
+                             "adjust caps to match")
         self.device = torch.device(device)
         if cam.dist.device != self.device:
             cam = dataclasses.replace(cam, dist=cam.dist.to(self.device))
@@ -429,6 +439,10 @@ class Tracker:
             scale_factor=o.scale_factor, ini_th=o.ini_th_fast, min_th=o.min_th_fast,
         )
         self.map = ms.empty_map(cfg.caps, self.device)
+        self.loop_closer = None
+        if cfg.flags.enable_loop_closing:
+            vocab = vocab or random_vocabulary(cfg.caps.vocab_words, device=self.device)
+            self.loop_closer = LoopCloser(vocab, cam, cfg)
         self.state = self.NOT_INITIALIZED
         self.n_kf = 0
         self.n_pt = 0  # point-slot high-water mark (slots below it may be free)
@@ -454,7 +468,7 @@ class Tracker:
         self.traj_rel: dict = {}  # fid -> (ref slot, ref fid, T_frame @ inv(T_ref))
         self._kf_slot_fid: dict = {}
         self.n_inliers = 0
-        self.n_loops = 0
+        self.n_loops = 0  # loop closures accepted
         self.n_plane = 0
         self.n_cub = 0
         self._metric_anchored = False  # the mono map was rescaled onto metric planes
@@ -521,6 +535,12 @@ class Tracker:
 
     # -- public API -----------------------------------------------------------
 
+    def set_localization_mode(self, on: bool):
+        """Localization mode (a frozen map, tracking.py:568 of the reference)
+        is not ported."""
+        if on:
+            raise NotImplementedError("localization mode is not ported")
+
     def _check_feature_caps(self):
         if self.cfg.orb.n_features != self.cfg.caps.max_keypoints:
             raise ValueError(
@@ -557,14 +577,20 @@ class Tracker:
                 n_local=cfg.caps.local_ba_points, n_local_kfs=tc.max_local_keyframes, has_depth=d is not None,
             )
             fetch = self._copy_to_host((out.scalars, out.T, out.T_ref))
+            loops_before = self.n_loops
             ref_at_dispatch = self.ref_kf  # out.T_ref is this slot's pose
             prev_pose = self._finish_pending()
-            if self.state == self.OK:
+            if self.state == self.OK and self.n_loops == loops_before:
                 self._pending = (frame_id, out, frame, plane_det, cuboid_det, ref_at_dispatch, fetch)
                 self._dev_T = out.T
                 self._dev_vel = out.velocity
                 self.last_kp_pt = out.kp_pt
                 self.last_frame = frame
+            # else LOST, or a loop closure re-based the map under the frame in
+            # flight: its outputs are in the old frame, so it is dropped.  As
+            # in the reference (tracking.py:636-648), _dev_T and _dev_vel are
+            # not cleared: the next frame starts from the stale pose, a
+            # reference fault the port mirrors
             return prev_pose
         self.flush()
         feats = self.extractor(g.to(torch.float32))
@@ -642,6 +668,7 @@ class Tracker:
         self.n_pt += n_new
         self._kf_fids.append(frame_id)
         self._kf_slot_fid[0] = frame_id
+        self._update_bow(0)
         self.map = ms.update_point_stats(self.map)
         self.T_cur = np.eye(4, dtype=np.float32)
         self.velocity = np.eye(4, dtype=np.float32)
@@ -650,6 +677,13 @@ class Tracker:
         self.ref_kf = 0
         self.frames_since_kf = 0
         self.state = self.OK
+
+    def _update_bow(self, kf_slot: int):
+        """The BoW row of a keyframe made outside the loop closer (the
+        initialization keyframes): relocalization scores against every
+        keyframe's row (KeyFrame::ComputeBoW)."""
+        if self.loop_closer is not None:
+            self.map, _ = update_kf_bow(self.loop_closer.vocab, self.map, kf_slot)
 
     def _ransac_samples(self, valid, frame_id: int):
         """The (200, 8) RANSAC samples of one attempt, drawn on the CPU from
@@ -715,6 +749,8 @@ class Tracker:
         self._kf_fids += [self.init_frame_id, frame_id]
         self._kf_slot_fid[0] = self.init_frame_id
         self._kf_slot_fid[1] = frame_id
+        self._update_bow(0)
+        self._update_bow(1)
         self.map = ms.update_point_stats(self.map)
         self.map, _ = run_local_ba(self.map, 1, self.cam, self.cfg)
         self.T_cur = self._sync_read(self.map.kf_pose[1])
@@ -794,11 +830,25 @@ class Tracker:
     def _relocalize(self, frame: Frame, frame_id: int):
         """LOST: a map of at most 5 keyframes is reset and initialization
         starts again (Tracking.cc:620-628), from this frame's depth for the
-        depth sensors.  Relocalization against a larger map needs the
-        place-recognition database, which is not ported."""
+        depth sensors; a larger map relocalizes against the keyframe
+        database when loop closing is on (Tracking.cc:1663-1824), its PnP
+        samples drawn from a generator seeded by the candidate slot."""
         if self.n_kf <= 5:
             self._reset()
             self._initialize(frame, frame_id)
+            return
+        if self.loop_closer is None:
+            return
+        res = relocalize(self.map, frame, self.cam, self.loop_closer.vocab, self.cfg, self.n_kf, fetch=self._fetch)
+        if res is None:
+            return
+        T_opt, kp_pt, n_in = res
+        self.T_cur = self._fetch((T_opt,))[0]
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.last_frame = frame
+        self.last_kp_pt = kp_pt
+        self.n_inliers = n_in
+        self.state = self.OK
 
     def _reset(self):
         """System::Reset: a new map lives in a new frame, so the trajectory
@@ -823,6 +873,12 @@ class Tracker:
         self._pending = None
         self._dev_T = self._dev_vel = None
         self._map_fork = False
+        if self.loop_closer is not None:
+            lc = self.loop_closer
+            lc.prev_groups = []
+            lc.last_loop_fid = -1000
+            lc.kf_seen = 0
+            lc.last_loop_kf_seen = -1000
 
     # -- point-slot allocation ----------------------------------------------
     #
@@ -957,7 +1013,40 @@ class Tracker:
         self._lap(t, "kf", "semantic")
         self._local_mapping_step(slot, frame_id)
         self._lap(t, "kf", "mapping")
+        if self.loop_closer is not None:
+            self.map, closed = self.loop_closer.on_keyframe(self.map, slot, self.n_kf, frame_id=frame_id,
+                                                            fetch=self._fetch)
+            self._lap(t, "kf", "loop")
+            if closed:
+                self._after_loop_closure(slot)
         self.last_kp_pt = self.map.kf_pt[slot]
+
+    def _after_loop_closure(self, slot: int):
+        """The global BA after a closure (tracking.py:1335-1363 of the
+        reference), under ``cfg.ba.gba_time_budget_s`` when that is set.
+        Its result is refused when it leaves fewer than half the live
+        points: a global BA fed an imprecise weld can flag most observations
+        as outliers, and the <= 2-observation kill then cascades (1011 -> 1
+        live points measured on a golden-loop closure); the essential
+        graph's map is kept instead."""
+        self.n_loops += 1
+        budget = self.cfg.ba.gba_time_budget_s
+        abort = None
+        if budget > 0:
+            t0 = time.perf_counter()
+
+            def abort():
+                return time.perf_counter() - t0 > budget
+        pre_live = self.live_points()
+        post_map, _ = run_global_ba(self.map, self.cam, self.cfg, n_kf=self.n_kf, should_abort=abort,
+                                    fetch=self._fetch)
+        post_live = int(self._fetch((post_map.pt_valid.sum(),))[0])
+        if post_live >= 0.5 * pre_live:
+            self.map = post_map
+        else:
+            self.dbg["gba_rejected"] = (pre_live, post_live)
+        self.T_cur = self._fetch((self.map.kf_pose[slot],))[0]
+        self.velocity = np.eye(4, dtype=np.float32)
 
     def _create_depth_points(self, kf_slot: int, frame: Frame, frame_id: int, T):
         """Close-depth points for the keyframe's unbound keypoints

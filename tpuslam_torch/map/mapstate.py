@@ -173,6 +173,13 @@ def map_from_numpy(fields: dict, device) -> MapState:
     return MapState(**{k: tensor_from_numpy(fields[k], device) for k in FIELDS})
 
 
+def read_numpy(tensors) -> list:
+    """Device tensors to numpy, each with its own wait (the default read of
+    the loop closer, relocalization and global BA; the Tracker passes its
+    counted one-copy read instead)."""
+    return [t.cpu().numpy() for t in tensors]
+
+
 def map_to_numpy(m: MapState) -> dict:
     out = {k: getattr(m, k).cpu().numpy() for k in FIELDS}
     for k in ("kf_desc", "pt_desc"):
