@@ -113,15 +113,43 @@ In order, it
      final map, the newest keyframe's word ids (exact), BoW row and scores
      (1e-6) and a fresh detector's gates on the card against the CPU; K1
      and K2 at its shapes;
- 14. prints each phase's seconds, the slice's frames/s, the device ms of
+ 14. the CLI from disk: the port writes the first 100 golden frames at
+     640x480 with ``synth.write_sequence`` (its PNG encoder) to a temporary
+     folder, every decoded pixel must equal phase 7's frames and every
+     decoded depth phase 9's (``quantize_depth``), and the decode ms per
+     image are printed; then ``mono_icl.main([folder, "--max-frames",
+     "100", "--vocab", "lsh", "--checkpoint", ck, "--save-kitti", "--out",
+     ...])`` (loops on, the default) is gated as phase 13 against
+     ``JAX_GOLDEN_LOOPS_100`` with 0 loops, and its frames/s (one over the
+     mean frame time) is printed beside phase 13's; K1 on the decoded frame
+     0 and K2 on its features against the checkpoint's reference keyframe;
+ 15. resume and localize: the same folder with ``--resume ck
+     --localization-only --checkpoint ck2``: every ``MapState`` tensor of
+     ck2 equal to ck's, no keyframe made, the first frame placed by
+     relocalization no later than the map's earliest keyframe that holds
+     half the median live keyframe's bound points (frame 0 in the JAX
+     package's map), 0.9 x the frames from it on tracked, and the Sim3-aligned raw ATE of the localized
+     frames inside the band of the JAX package's CLI run of the same calls
+     (``JAX_LOCALIZE_100``); the ms per localized frame and the
+     relocalizations are printed;
+ 16. the depth CLIs from disk, 30 frames each: ``rgbd_icl --planes online
+     --objects`` on the same folder and ``stereo_kitti`` on a KITTI layout
+     the port writes with its encoder (``image_0`` phase 7's frames,
+     ``image_1`` phase 10's right views, the golden ``ICL.yaml`` as
+     settings), gated against the JAX package's runs of the same 30 frames
+     with loops on (``JAX_RGBD_30``, ``JAX_STEREO_30``): the first tracked
+     frame <= 1, tracked >= 0.9 x, keyframes within one, planes within 2,
+     stereo matches within 10%, metric raw ATE <= 1.5 x + 0.01 m; K1 on
+     both decoded views;
+ 17. prints each phase's seconds, the slice's frames/s, the device ms of
      plane segmentation and of stereo matching per frame (CUDA events
      around one call), each kernel's device time (launches queued behind a
      spin, ``kernels/timing.py``) beside its bound and its plain version's
      host-paced time, then one JSON line of kernels (launches summed over
-     the eight paths that run on the card and launch them: the slice, the
+     the twelve paths that run on the card and launch them: the slice, the
      card's small replay, the golden, flagship, RGB-D and stereo replays,
-     relocalization and the loops-on replay), the card line, and the
-     result.
+     relocalization, the loops-on replay and the four CLI runs of phases
+     14-16), the card line, and the result.
 
 It imports nothing of JAX.  Any failed phase raises, and the script exits
 non-zero without printing the result line.
@@ -130,10 +158,12 @@ non-zero without printing the result line.
 from __future__ import annotations
 
 import json
+import os
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -185,7 +215,27 @@ JAX_STEREO_100 = {
     "stereo_factors": 6159, "stereo_matches": 705.0, "ate_raw_m": 0.010202375757706954,
     "ate_m": 0.008088339732164902, "kf_ate_m": 0.006046864757868631,
 }
+# jax_golden_reference.py --localize --frames 100: the JAX package's mono_icl
+# CLI on the written golden folder (--vocab lsh, loops on), then again with
+# --resume --localization-only (phases 14 and 15)
+JAX_LOCALIZE_100 = {
+    "first_tracked": 4, "tracked": 96, "keyframes_created": 21, "points": 949, "loops": 0,
+    "ate_raw_m": 0.013295893121452181, "loc_tracked": 100, "loc_first_tracked": 0,
+    "loc_ate_raw_m": 0.010533209853483567, "loc_report_tracked": 196, "loc_report_ate_raw_m": 0.01539545293052853,
+}
+# jax_golden_reference.py --rgbd --loops --frames 30 and --stereo --loops
+# --frames 30: phase 16's CLIs' configurations (loops on, their default)
+JAX_RGBD_30 = {
+    "first_tracked": 0, "tracked": 30, "keyframes_created": 1, "keyframes_live": 1, "points": 1024, "planes": 0,
+    "cuboids": 0, "online_planes": 159, "ate_raw_m": 0.0037669180596295753, "ate_m": 0.0037669180596295753,
+}
+JAX_STEREO_30 = {
+    "first_tracked": 0, "tracked": 30, "keyframes_created": 1, "keyframes_live": 1, "points": 687,
+    "stereo_matches": 687.5, "ate_raw_m": 0.004978816218322852, "ate_m": 0.004978816218322852,
+}
 GOLDEN_FRAMES = 100
+CLI_FRAMES = 100
+DEPTH_CLI_FRAMES = 30
 FLAGSHIP_FRAMES = 200
 RGBD_FRAMES = 100
 STEREO_FRAMES = 100
@@ -887,7 +937,7 @@ def loops_replay(golden, dev, rendered, read_launches):
     of the detector.  Returns the report line, the tracker and the launches."""
     rep, tr = golden.run_golden(LOOPS_FRAMES, dev, count_waits=True, rendered=rendered, loops=True)
     launches = read_launches()
-    line = {k: rep.get(k) for k in GOLDEN_KEYS + ("loops", "loop_gates")}
+    line = {k: rep.get(k) for k in GOLDEN_KEYS + ("loops", "loop_gates", "mean_frame_s")}
     line["loop_ms_per_keyframe"] = {k: v for k, v in rep["kf_stage_ms"].items() if k.startswith(("loop_", "kf_loop"))}
     line.update(wait_summary(tr))
     print("loops " + json.dumps(line), flush=True)
@@ -898,6 +948,226 @@ def loops_replay(golden, dev, rendered, read_launches):
           flush=True)
     line["detector_score_diff"] = detector_card_vs_cpu(tr)
     return line, tr, launches
+
+
+def first_tracked_on_disk(out_dir: str):
+    """The first frame id of a CLI run's ``TrajectoryRaw.txt``, None if none."""
+    rows = np.loadtxt(os.path.join(out_dir, "TrajectoryRaw.txt"), ndmin=2)
+    return int(rows[0, 0]) if len(rows) else None
+
+
+def localization_after_resume(out_dir: str, n_restored: int, gt_cw):
+    """``jax_golden_reference.py:localization_after_resume`` on the port's
+    files: the frames a resumed run tracked, the first of them and the
+    Sim3-aligned ATE of their raw poses against ``gt_cw``."""
+    from tpuslam_torch.io.datasets import _tum_rows_to_Tcw
+    from tpuslam_torch.io.trajectory import ate_rmse
+
+    rows = np.loadtxt(os.path.join(out_dir, "TrajectoryRaw.txt"), ndmin=2)[n_restored:]
+    out = {"loc_tracked": len(rows), "loc_first_tracked": int(rows[0, 0]) if len(rows) else None}
+    if len(rows) >= 3:
+        fids = rows[:, 0].astype(int)
+        out["loc_ate_raw_m"] = ate_rmse(list(_tum_rows_to_Tcw(rows)), [gt_cw[f] for f in fids], with_scale=True)[0]
+    return out
+
+
+def disk_kernel_cases(dev, gray0, m, ref: int):
+    """K1 and K2 at a CLI run's shapes: the decoded frame 0's pyramid with
+    an extractor's live level sizes, and its features against the map's
+    reference keyframe's bound keypoints."""
+    from tpuslam_torch.kernels.orb import OrbExtractor
+
+    ex = OrbExtractor(gray0.shape[0], gray0.shape[1], dev)
+    g = torch.from_numpy(gray0).to(dev).to(torch.float32)
+    f = ex(g)
+    has_pt = (m.kf_pt[ref] >= 0) & m.kf_kp_valid[ref]
+    return (ex.pyramid(g), ex.live_dims), (f.desc, m.kf_desc[ref].contiguous(), has_pt.contiguous())
+
+
+def write_golden_folder(work: str, dev, frames, depth):
+    """Phase 14's folder: the first ``CLI_FRAMES`` golden frames written by
+    the port's ``write_sequence``, each decoded PNG held to the in-memory
+    render (``frames``, phase 7's) and each decoded depth to
+    ``quantize_depth`` (``depth``, phase 9's).  Returns (folder, decode ms
+    per image by kind)."""
+    from tpuslam_torch.apps.golden import GOLDEN_ANGLE_DEG, GOLDEN_FRAMES as N_GOLDEN
+    from tpuslam_torch.io import datasets, synth
+
+    folder = os.path.join(work, "golden")
+    t0 = time.perf_counter()
+    synth.write_sequence(folder, n_frames=N_GOLDEN, total_angle_deg=GOLDEN_ANGLE_DEG, device=dev, n_write=CLI_FRAMES)
+    print(f"write_sequence: {CLI_FRAMES} frames in {time.perf_counter() - t0:.1f} s", flush=True)
+    ds = datasets.IclDataset(folder, native=True)
+    bad_px = bad_d = 0
+    for it in ds.frames(with_depth=True):
+        bad_px += int((torch.from_numpy(it.gray) != frames[it.frame_id]).sum())
+        bad_d += int((torch.from_numpy(it.depth) != depth[it.frame_id]).sum())
+    check(bad_px == 0 and bad_d == 0, f"the written folder decodes to the in-memory render: {bad_px} pixels and "
+          f"{bad_d} depths of {CLI_FRAMES} frames differ")
+    plain = datasets.IclDataset(folder, max_frames=10)
+    list(plain.frames(with_depth=True))
+    dec = {f"{k}_native": float(np.mean(v)) for k, v in ds.decode_ms.items()}
+    dec.update({f"{k}_plain": float(np.mean(v)) for k, v in plain.decode_ms.items()})
+    print("decode ms per image (host) " + json.dumps(dec), flush=True)
+    return folder, dec
+
+
+def cli_phase(work: str, folder: str, dev, read_launches, reset_launches):
+    """Phase 14: ``mono_icl`` from disk with a checkpoint; returns (report
+    line, launches, checkpoint path, K1/K2 cases)."""
+    from tpuslam_torch.apps import mono_icl
+    from tpuslam_torch.io import checkpoint, png
+
+    ck, out = os.path.join(work, "map.npz"), os.path.join(work, "cli_map")
+    reset_launches()
+    rep = mono_icl.main([folder, "--max-frames", str(CLI_FRAMES), "--vocab", "lsh", "--checkpoint", ck,
+                         "--save-kitti", "--out", out])
+    launches = read_launches()
+    rep["first_tracked"] = first_tracked_on_disk(out)
+    line = {k: rep.get(k) for k in ("frames", "tracked", "first_tracked", "keyframes_created", "keyframes_live",
+                                    "points", "loops", "ate_rmse_raw_m", "ate_rmse_m", "kf_ate_rmse_m",
+                                    "median_frame_s", "mean_frame_s", "wall_s", "frames_per_s",
+                                    "decode_ms_per_image", "kf_stage_ms")}
+    print("cli " + json.dumps(line), flush=True)
+    replay_gates("cli", rep, JAX_GOLDEN_LOOPS_100, CLI_FRAMES)
+    check(rep["loops"] == 0, f"cli: {rep['loops']} loops closed (JAX package {JAX_GOLDEN_LOOPS_100['loops']})")
+    for name in ("KeyFrameTrajectory.txt", "TrajectoryRaw.txt", "CameraTrajectory_kitti.txt"):
+        check(os.path.getsize(os.path.join(out, name)) > 0, f"cli: {name} written")
+    m, extra = checkpoint.load_map(ck, dev)
+    check(extra["n_kf"] > 0 and len(extra["trajectory"]) == rep["tracked"],
+          f"cli: checkpoint with {extra['n_kf']} keyframe slots and {len(extra['trajectory'])} tracked frames")
+    check(launches["fast_nms"] == CLI_FRAMES, f"cli: fast_nms launched {launches['fast_nms']} times in "
+          f"{CLI_FRAMES} frames from disk")
+    check(launches["hamming_top2"] >= rep["tracked"] - 1,
+          f"cli: hamming_top2 launched {launches['hamming_top2']} times, once per hot-path frame")
+    gray0 = png.imread_gray(os.path.join(folder, "rgb", "0000.png"), native=True)
+    return line, launches, ck, disk_kernel_cases(dev, gray0, m, extra["ref_kf"])
+
+
+def live_keyframe_points(m) -> dict:
+    """{frame id: keypoints bound to live points} of the live keyframes."""
+    valid, fids = m.kf_valid.cpu().numpy(), m.kf_frame_id.cpu().numpy()
+    kf_pt, kp_valid, pt_valid = (x.cpu().numpy() for x in (m.kf_pt, m.kf_kp_valid, m.pt_valid))
+    bound = ((kf_pt >= 0) & kp_valid & pt_valid[np.clip(kf_pt, 0, None)]).sum(axis=1)
+    return {int(fids[s]): int(bound[s]) for s in np.flatnonzero(valid)}
+
+
+def localize_phase(work: str, folder: str, ck: str, dev, gt, read_launches, reset_launches):
+    """Phase 15: the same folder resumed from ``ck`` in localization mode;
+    returns (report line, launches)."""
+    from tpuslam_torch.apps import mono_icl
+    from tpuslam_torch.io import checkpoint
+    from tpuslam_torch.map import mapstate as ms
+
+    ck2, out = os.path.join(work, "after.npz"), os.path.join(work, "cli_loc")
+    m0, extra0 = checkpoint.load_map(ck, dev)
+    reset_launches()
+    rep = mono_icl.main([folder, "--max-frames", str(CLI_FRAMES), "--vocab", "lsh", "--resume", ck,
+                         "--localization-only", "--checkpoint", ck2, "--out", out])
+    launches = read_launches()
+    m1, extra1 = checkpoint.load_map(ck2, dev)
+    loc = localization_after_resume(out, len(extra0["trajectory"]), gt)
+    line = {k: rep.get(k) for k in ("frames", "tracked", "keyframes_created", "relocalized", "vo_frames",
+                                    "median_frame_s", "mean_frame_s", "wall_s", "ate_rmse_raw_m")}
+    line.update(loc, ms_per_frame=1e3 * rep["wall_s"] / rep["frames"])
+    print("localize " + json.dumps(line), flush=True)
+    # the tracked frames commit their points' found/visible counters, as
+    # the reference does; everything else of the map stays as it was
+    counters = ("pt_found", "pt_visible")
+    changed = [k for k in ms.FIELDS if k not in counters and not torch.equal(getattr(m0, k), getattr(m1, k))]
+    check(not changed, f"localize: every MapState tensor but {counters} equal before and after "
+          f"({len(ms.FIELDS)} fields; changed: {changed})")
+    shrunk = [k for k in counters if not bool((getattr(m1, k) >= getattr(m0, k)).all())]
+    check(not shrunk, f"localize: the found/visible counters only grow (fell: {shrunk})")
+    check(rep["keyframes_created"] == len(extra0["kf_fids"]) and extra1["kf_fids"] == extra0["kf_fids"],
+          f"localize: no keyframe made ({rep['keyframes_created']} created, all restored)")
+    kf_points = live_keyframe_points(m0)
+    line["live_keyframe_points"] = kf_points
+    print("localize: live keyframes' bound points by frame id " + json.dumps(kf_points), flush=True)
+    ref = JAX_LOCALIZE_100
+    first = loc["loc_first_tracked"]
+    check(first == ref["loc_first_tracked"] and rep["relocalized"] >= 1,
+          f"localize: the first frame placed, {first}, relocalized ({rep['relocalized']} relocalizations; "
+          f"JAX package: frame {ref['loc_first_tracked']})")
+    check(loc["loc_tracked"] >= 0.9 * ref["loc_tracked"],
+          f"localize: {loc['loc_tracked']} of {CLI_FRAMES} frames tracked >= 0.9 x the JAX package's "
+          f"{ref['loc_tracked']}")
+    lim = 1.5 * ref["loc_ate_raw_m"] + 0.01
+    check(loc["loc_ate_raw_m"] <= lim, f"localize: raw ATE of the localized frames {loc['loc_ate_raw_m']:.4f} m <= "
+          f"{lim:.4f} m (JAX package {ref['loc_ate_raw_m']:.4f} m)")
+    check(launches["fast_nms"] == CLI_FRAMES, f"localize: fast_nms launched {launches['fast_nms']} times")
+    check(launches["hamming_top2"] >= loc["loc_tracked"] - 1,
+          f"localize: hamming_top2 launched {launches['hamming_top2']} times")
+    return line, launches
+
+
+def write_kitti_pair(work: str, left, right, poses_wc, n: int) -> str:
+    """A KITTI odometry layout of the first ``n`` golden pairs, written with
+    the port's PNG encoder: ``image_0``, ``image_1``, ``times.txt``,
+    ``poses.txt`` (camera-to-world rows) and the golden ``ICL.yaml``."""
+    from tpuslam_torch.io import png, synth
+
+    root = os.path.join(work, "kitti")
+    for d in ("image_0", "image_1"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i in range(n):
+        png.imwrite(os.path.join(root, "image_0", f"{i:06d}.png"), left[i].numpy())
+        png.imwrite(os.path.join(root, "image_1", f"{i:06d}.png"), right[i].numpy())
+    np.savetxt(os.path.join(root, "times.txt"), np.arange(n) / 30.0)
+    np.savetxt(os.path.join(root, "poses.txt"), np.stack([p[:3, :4].reshape(-1) for p in poses_wc[:n]]))
+    cam = synth.CameraSpec()
+    with open(os.path.join(root, "ICL.yaml"), "w") as fh:
+        fh.write("%YAML:1.0\n"
+                 f"Camera.fx: {cam.fx}\nCamera.fy: {cam.fy}\nCamera.cx: {cam.cx}\nCamera.cy: {cam.cy}\n"
+                 f"Camera.width: {cam.width}\nCamera.height: {cam.height}\nCamera.bf: {cam.fx * cam.baseline}\n")
+    return root
+
+
+def depth_cli_phase(work: str, folder: str, left, right, poses_wc, read_launches, reset_launches):
+    """Phase 16: ``rgbd_icl --planes online --objects`` and ``stereo_kitti``
+    from disk over ``DEPTH_CLI_FRAMES`` frames; returns (lines, launches of
+    each, the decoded stereo pair 0)."""
+    from tpuslam_torch.apps import rgbd_icl, stereo_kitti
+    from tpuslam_torch.io import png
+
+    n = DEPTH_CLI_FRAMES
+    lines, launches = {}, {}
+    kitti = write_kitti_pair(work, left, right, poses_wc, n)
+    runs = (("rgbd_cli", rgbd_icl, [folder, "--planes", "online", "--objects"], JAX_RGBD_30, 1),
+            ("stereo_cli", stereo_kitti, [kitti, "--settings", "ICL.yaml"], JAX_STEREO_30, 2))
+    for name, mod, args, ref, per_frame in runs:
+        out = os.path.join(work, name)
+        reset_launches()
+        rep = mod.main(args + ["--max-frames", str(n), "--vocab", "lsh", "--out", out])
+        launches[name] = read_launches()
+        rep["first_tracked"] = first_tracked_on_disk(out)
+        line = {k: rep.get(k) for k in ("frames", "tracked", "first_tracked", "keyframes_created", "points",
+                                        "planes", "cuboids", "stereo_matches", "ate_rmse_raw_m", "ate_rmse_m",
+                                        "mean_frame_s", "frames_per_s", "decode_ms_per_image")}
+        print(f"{name} " + json.dumps(line), flush=True)
+        lines[name] = line
+        first = rep["first_tracked"]
+        check(first is not None and first <= 1, f"{name}: first tracked frame {first} <= 1")
+        check(rep["tracked"] >= 0.9 * ref["tracked"], f"{name}: tracked {rep['tracked']} >= 0.9 x the JAX "
+              f"package's {ref['tracked']}")
+        k, k_ref = rep["keyframes_created"], ref["keyframes_created"]
+        check(abs(k - k_ref) <= 1, f"{name}: {k} keyframes created, JAX package {k_ref} (within one)")
+        lim = 1.5 * ref["ate_raw_m"] + 0.01
+        check(rep["ate_rmse_raw_m"] <= lim, f"{name}: metric raw ATE {rep['ate_rmse_raw_m']:.4f} m <= {lim:.4f} m "
+              f"(JAX package {ref['ate_raw_m']:.4f} m)")
+        if name == "rgbd_cli":
+            check(abs(rep["planes"] - ref["planes"]) <= 2, f"{name}: {rep['planes']} map planes, JAX package "
+                  f"{ref['planes']} (within 2)")
+        else:
+            sm, sm_ref = rep["stereo_matches"], ref["stereo_matches"]
+            check(abs(sm - sm_ref) <= 0.1 * sm_ref, f"{name}: a median {sm} stereo matches per pair, JAX "
+                  f"package {sm_ref}")
+        check(launches[name]["fast_nms"] == per_frame * n,
+              f"{name}: fast_nms launched {launches[name]['fast_nms']} times in {n} frames")
+        check(launches[name]["hamming_top2"] >= rep["tracked"] - 1,
+              f"{name}: hamming_top2 launched {launches[name]['hamming_top2']} times")
+    pair0 = [png.imread_gray(os.path.join(kitti, d, "000000.png"), native=True) for d in ("image_0", "image_1")]
+    return lines, launches, pair0
 
 
 def random_descriptors(n, seed, device):
@@ -913,7 +1183,9 @@ def main() -> int:
     import tpuslam_torch  # noqa: F401  (pins float32 matmuls)
     from tpuslam_torch import workload
     from tpuslam_torch.apps import golden
+    from tpuslam_torch.io import png
     from tpuslam_torch.kernels import build, cuda_fast, cuda_match, orb, timing
+    from tpuslam_torch.place import dbow_compat
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -926,10 +1198,15 @@ def main() -> int:
     t_phase = time.perf_counter()
 
     # --- 2. build -------------------------------------------------------------
+    # both kernels with nvcc, and the CLIs' host helpers (the PNG unfilter and
+    # the ORBvoc text scanner) with the host compiler, all started together
     t0 = time.perf_counter()
     names = ("fast_nms", "hamming_top2")
-    with ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(build.load, names))
+    with ThreadPoolExecutor(len(names) + 2) as pool:
+        jobs = [pool.submit(build.load, n) for n in names]
+        jobs += [pool.submit(build.load_host, src) for src in (png.UNFILTER_SRC, dbow_compat.NATIVE_SRC)]
+        for job in jobs:
+            job.result()
     for name in names:
         log = build.library_path(name).with_suffix(".log")
         if log.exists():
@@ -937,7 +1214,7 @@ def main() -> int:
                 if "ptxas info" in line and ("Used" in line or "spill" in line):
                     print(f"{name}: {line.strip()}")
     build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.3f} s for both kernels", flush=True)
+    print(f"build: {build_s:.3f} s for both kernels and the two host helpers", flush=True)
     phase_s["build"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
@@ -1133,9 +1410,40 @@ def main() -> int:
     k1_err = max(k1_err, hold_k1({"loops_frame0": (pyr, dims)}, cuda_fast, orb))
     k2_err = max(k2_err, hold_k2({"loops_frame_vs_ref_kf": k2_in}, cuda_match))
     phase_s["loops_replay"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # --- 14-16. the CLIs from disk ----------------------------------------------------
+    from tpuslam_torch.apps.golden import GOLDEN_ANGLE_DEG, GOLDEN_FRAMES as N_GOLDEN
+    from tpuslam_torch.io import synth
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        folder, decode_ms = write_golden_folder(work, dev, gold_frames, rend_rgbd.depth)
+        cli, launches_cli, ck, (k1_cli, k2_cli) = cli_phase(work, folder, dev, read_launches, reset_launches)
+        print(f"launches: cli {launches_cli}; frames/s over the loop's wall time, reads and decodes included: "
+              f"cli {cli['frames_per_s']:.3f}, loops replay (phase 13, in memory) {loops['frames_per_s']:.3f}",
+              flush=True)
+        k1_err = max(k1_err, hold_k1({"cli_decoded_frame0": k1_cli}, cuda_fast, orb))
+        k2_err = max(k2_err, hold_k2({"cli_frame0_vs_ref_kf": k2_cli}, cuda_match))
+        phase_s["cli_from_disk"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+        loc, launches_loc = localize_phase(work, folder, ck, dev, gold_rendered.gt, read_launches, reset_launches)
+        print(f"launches: localize {launches_loc}", flush=True)
+        phase_s["resume_localize"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+        poses_wc = synth.trajectory(N_GOLDEN, synth.SceneSpec(), total_angle_deg=GOLDEN_ANGLE_DEG)
+        depth_lines, launches_depth, pair0 = depth_cli_phase(work, folder, gold_frames, rend_ster.right, poses_wc,
+                                                             read_launches, reset_launches)
+        print(f"launches: depth CLIs {launches_depth}", flush=True)
+        ex = orb.OrbExtractor(pair0[0].shape[0], pair0[0].shape[1], dev)
+        pyr_l, pyr_r = (ex.pyramid(torch.from_numpy(g).to(dev).to(torch.float32)) for g in pair0)
+        k1_err = max(k1_err, hold_k1({"stereo_cli_left0": (pyr_l, ex.live_dims),
+                                      "stereo_cli_right0": (pyr_r, ex.live_dims)}, cuda_fast, orb))
+        phase_s["depth_clis"] = time.perf_counter() - t_phase
     print("phase seconds " + json.dumps(phase_s), flush=True)
 
-    # --- 11. report -------------------------------------------------------------
+    # --- 17. report -------------------------------------------------------------
     print(json.dumps({
         "slice_frames_per_s": fps, "slice_seconds": dt, "frames": n_frames,
         "median_n_final": float(np.median(n_final)), "final_x_m": x_last, "expected_x_m": x_expect,
@@ -1147,12 +1455,19 @@ def main() -> int:
         "rgbd_frames_per_s": rgbd["frames_per_s"], "stereo_frames_per_s": ster["frames_per_s"],
         "segment_planes_ms_per_frame": seg_ms, "stereo_matches_ms_per_frame": match_ms,
         "loops_frames_per_s": loops["frames_per_s"], "loops": loops["loops"], "relocalization_ms": reloc_ms,
+        "cli_frames_per_s": cli["frames_per_s"],
+        "decode_ms_per_image": decode_ms, "localize_ms_per_frame": loc["ms_per_frame"],
+        "localize_relocalized": loc["relocalized"], "localize_tracked": loc["loc_tracked"],
+        "localize_ate_raw_m": loc["loc_ate_raw_m"],
+        "rgbd_cli_frames_per_s": depth_lines["rgbd_cli"]["frames_per_s"],
+        "stereo_cli_frames_per_s": depth_lines["stereo_cli"]["frames_per_s"],
         **loop, "phase_s": phase_s, "total_s": sum(phase_s.values()),
     }))
     kernels = [
         {"name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
          "launches": sum(n[name] for n in (launches, launches_small, launches_golden, launches_flag,
-                                           launches_rgbd, launches_ster, launches_reloc, launches_loops)),
+                                           launches_rgbd, launches_ster, launches_reloc, launches_loops,
+                                           launches_cli, launches_loc, *launches_depth.values())),
          "max_abs_err": err, **k}
         for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
     ]

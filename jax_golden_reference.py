@@ -55,6 +55,20 @@ groups; ``sim3``: a Sim3 accepted), read from the detector's debug lines, and
 ``loop_closures``: the frame ids of each closure's two keyframes.
 ``chip_smoke.py``'s ``JAX_GOLDEN_LOOPS_100`` holds the run of ``--loops
 --frames 100``.
+
+``--localize`` drives the JAX package's ``mono_icl`` CLI from disk, as
+``chip_smoke.py``'s phases 14 and 15 drive the port's: the first
+``--frames`` golden frames are written as ``write_sequence`` writes them
+(``rgb/``, ``rgb.txt``, ``odom.txt``, ``ICL.yaml``; the PNGs by
+``cv2.imwrite``) to a temporary folder, then ``mono_icl <folder> --vocab lsh
+--checkpoint ck`` maps it (loops on, the default) and ``mono_icl <folder>
+--vocab lsh --resume ck --localization-only`` replays it against the frozen
+map.  It prints one JSON line with both reports and, for the second run,
+the frames it tracked (``loc_tracked``), the first of them
+(``loc_first_tracked``) and the Sim3-aligned ATE of their raw poses
+(``loc_ate_raw_m``), read from its ``TrajectoryRaw.txt``;
+``chip_smoke.py``'s ``JAX_LOCALIZE_100`` holds the run of ``--localize
+--frames 100``.
 """
 
 from __future__ import annotations
@@ -152,6 +166,75 @@ def flagship_flags():
     )
 
 
+def write_folder(folder: str, frames, poses_wc, cam: synth.CameraSpec, fps: float = 30.0) -> str:
+    """The mono part of ``write_sequence``'s layout for already rendered
+    uint8 frames: ``rgb/%04d.png``, ``rgb.txt``, ``odom.txt`` and ``ICL.yaml``
+    (synth.py:366-450)."""
+    import cv2
+
+    os.makedirs(os.path.join(folder, "rgb"), exist_ok=True)
+    rgb_lines, odom_lines = [], []
+    for f, gray in enumerate(frames):
+        stamp = f / fps
+        cv2.imwrite(os.path.join(folder, "rgb", f"{f:04d}.png"), gray)
+        rgb_lines.append(f"{stamp:.6f} rgb/{f:04d}.png")
+        q = synth._R_to_quat_np(poses_wc[f][:3, :3])
+        tx, ty, tz = poses_wc[f][:3, 3]
+        odom_lines.append(f"{stamp:.6f} {tx:.9f} {ty:.9f} {tz:.9f} {q[0]:.9f} {q[1]:.9f} {q[2]:.9f} {q[3]:.9f}")
+    for name, lines in (("rgb.txt", rgb_lines), ("odom.txt", odom_lines)):
+        with open(os.path.join(folder, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    with open(os.path.join(folder, "ICL.yaml"), "w") as fh:
+        fh.write("%YAML:1.0\n"
+                 f"Camera.fx: {cam.fx}\nCamera.fy: {cam.fy}\nCamera.cx: {cam.cx}\nCamera.cy: {cam.cy}\n"
+                 "Camera.k1: 0.0\nCamera.k2: 0.0\nCamera.p1: 0.0\nCamera.p2: 0.0\n"
+                 f"Camera.width: {cam.width}\nCamera.height: {cam.height}\n"
+                 f"Camera.bf: {cam.fx * cam.baseline}\nCamera.fps: {fps}\n")
+    return folder
+
+
+def localization_after_resume(out_dir: str, n_restored: int, gt_cw):
+    """What a ``--resume --localization-only`` run tracked, from its
+    ``TrajectoryRaw.txt`` (the restored rows first): the frames tracked, the
+    first of them and the Sim3-aligned ATE of their raw poses against
+    ``gt_cw`` (world->camera by frame id)."""
+    from tpuslam.io.datasets import _tum_rows_to_Tcw
+
+    rows = np.loadtxt(os.path.join(out_dir, "TrajectoryRaw.txt"), ndmin=2)[n_restored:]
+    out = {"loc_tracked": len(rows), "loc_first_tracked": int(rows[0, 0]) if len(rows) else None}
+    if len(rows) >= 3:
+        fids = rows[:, 0].astype(int)
+        out["loc_ate_raw_m"] = ate_rmse(list(_tum_rows_to_Tcw(rows)), [gt_cw[f] for f in fids], with_scale=True)[0]
+    return out
+
+
+def localize(n: int):
+    """``--localize``: map the written golden folder with ``mono_icl``, then
+    replay it in localization mode from the checkpoint."""
+    from tpuslam.apps import mono_icl
+    from tpuslam.io.checkpoint import load_map
+
+    cam = synth.CameraSpec()
+    frames, poses_wc, _, _ = render(n, cam)
+    work = tempfile.mkdtemp(prefix="golden_localize_")
+    folder = write_folder(os.path.join(work, "seq"), frames, poses_wc, cam)
+    ck = os.path.join(work, "map.npz")
+    base = [folder, "--max-frames", str(n), "--vocab", "lsh"]
+    t0 = time.perf_counter()
+    mapped = mono_icl.main(base + ["--checkpoint", ck, "--out", os.path.join(work, "map")])
+    t1 = time.perf_counter()
+    loc = mono_icl.main(base + ["--resume", ck, "--localization-only", "--out", os.path.join(work, "loc")])
+    t2 = time.perf_counter()
+    raw = np.loadtxt(os.path.join(work, "map", "TrajectoryRaw.txt"), ndmin=2)
+    gt = [np.linalg.inv(np.asarray(p, np.float64)) for p in poses_wc]
+    n_restored = len(load_map(ck)[1]["trajectory"])
+    rep = {"frames": n, "mapped": mapped, "first_tracked": int(raw[0, 0]), "localized": loc,
+           **localization_after_resume(os.path.join(work, "loc"), n_restored, gt),
+           "map_s": t1 - t0, "localize_s": t2 - t1}
+    print(json.dumps(rep))
+    return rep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=200)
@@ -163,7 +246,11 @@ def main(argv=None):
     mode.add_argument("--rgbd", action="store_true", help="rgbd_icl --planes online --objects")
     mode.add_argument("--stereo", action="store_true", help="stereo_kitti's configuration on a rendered pair")
     ap.add_argument("--loops", action="store_true", help="loop closing on (the Tracker's default)")
+    ap.add_argument("--localize", action="store_true",
+                    help="mono_icl from a written folder, then --resume --localization-only on it")
     args = ap.parse_args(argv)
+    if args.localize:
+        return localize(args.frames)
     if args.small:
         cspec = synth.CameraSpec(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
         caps = Capacities(max_keypoints=512, max_keyframes=256, max_points=8192, local_ba_points=2048)

@@ -90,6 +90,24 @@ def test_initialize_two_view_matches_reference_given_its_samples(pair):
         assert bool(ref.ok) and good.sum() > 80
 
 
+@pytest.mark.parametrize("seed,n,p_valid,n_iters,n_pick", [
+    (3, 1024, 0.4, 200, 8),  # an initialization attempt at full width
+    (4, 300, 0.7, 200, 8),
+    (17, 512, 0.5, 200, 6),  # a relocalization candidate's PnP draw
+    (1004, 64, 0.5, 300, 3),  # a Sim3 draw
+    (0, 10, 0.3, 20, 8),  # fewer valid entries than picks
+])
+def test_ransac_samples_are_the_reference_draw(seed, n, p_valid, n_iters, n_pick):
+    """The port's host Threefry draw equals the reference's ``jax.random``
+    draw index for index (initializer.py:281-287, pnp.py:64-68,
+    sim3solver.py:73-77 of the reference)."""
+    valid = np.random.RandomState(seed).rand(n) < p_valid
+    keys = jax.random.split(jax.random.PRNGKey(seed), n_iters)
+    g = jax.vmap(lambda k: jax.random.gumbel(k, (n,)))(keys) + jnp.where(jnp.asarray(valid), 0.0, -1e9)
+    want = np.asarray(jax.lax.top_k(g, n_pick)[1])
+    np.testing.assert_array_equal(tin.ransac_samples(torch.from_numpy(valid), seed, n_iters, n_pick).numpy(), want)
+
+
 def test_ransac_samples_are_distinct_valid_and_seeded():
     valid = torch.from_numpy(np.random.RandomState(1).rand(300) > 0.3)
     s = tin.ransac_samples(valid, 7)

@@ -121,7 +121,8 @@ def test_solve_sim3_matches_reference_with_its_draw(fix_scale):
 
 
 def test_ransac_samples_draw_distinct_valid_indices():
-    """The port's own draw: distinct valid indices per iteration."""
+    """The port's draw: distinct valid indices per iteration, the
+    reference's own."""
     from tpuslam_torch.frontend.initializer import ransac_samples
 
     valid = torch.from_numpy(np.random.RandomState(0).rand(64) > 0.3)
@@ -129,7 +130,7 @@ def test_ransac_samples_draw_distinct_valid_indices():
     assert s.shape == (300, 3)
     assert bool(valid[s].all())
     assert all(len(set(row.tolist())) == 3 for row in s)
-    assert jax_draw(valid.numpy(), 11, 300, 3).shape == (300, 3)
+    np.testing.assert_array_equal(s.numpy(), jax_draw(valid.numpy(), 11, 300, 3))
 
 
 @pytest.mark.parametrize("fix_scale", [False, True])

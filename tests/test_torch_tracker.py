@@ -4,9 +4,8 @@ the first 14 frames of the golden loop rendered by the numpy oracle and
 truncated to uint8.  That covers initialization (with its local BA), two
 more keyframes and the BA of the third.
 
-The port draws its RANSAC samples from a torch generator; here
-``Tracker._ransac_samples`` is replaced by the reference's own draw, so both
-see the same hypotheses.
+The port draws the reference's own RANSAC samples
+(``initializer.ransac_samples``), so both see the same hypotheses.
 
 Tolerances: the initialization frame, the tracked frame ids and the
 keyframe frame ids equal; every tracked pose within 5e-3; the corrected-
@@ -23,7 +22,6 @@ import pytest
 import torch
 
 import _torch_scene as sc
-from test_torch_initializer import jax_samples
 from tpuslam.apps.common import _corrected_trajectory
 from tpuslam.core import camera as jcam
 from tpuslam.core import config as jcfg
@@ -70,8 +68,6 @@ def test_tracker_matches_reference(monkeypatch):
     c = sc.CSPEC
     jt = jtr.Tracker(jcam.Camera.make(c.fx, c.fy, c.cx, c.cy, width=c.width, height=c.height,
                                       bf=c.fx * c.baseline), _cfg(jcfg))
-    monkeypatch.setattr(ttr.Tracker, "_ransac_samples",
-                        lambda self, valid, fid: torch.from_numpy(jax_samples(valid.cpu().numpy(), fid).copy()))
     tt = ttr.Tracker(Camera.make(c.fx, c.fy, c.cx, c.cy, "cpu", width=c.width, height=c.height,
                                  bf=c.fx * c.baseline), _cfg(tcfg), device="cpu")
     first_j = _run(jt, frames)
@@ -95,8 +91,11 @@ def test_tracker_refuses_what_the_port_lacks():
     # loop closing is ported: the default flags construct, with the seeded codebook
     tt = ttr.Tracker(cam, base.replace(flags=tcfg.FeatureFlags()), device="cpu")
     assert tt.loop_closer is not None and tt.loop_closer.vocab.n_words == base.caps.vocab_words
-    with pytest.raises(NotImplementedError):  # localization mode is not ported
-        tt.set_localization_mode(True)
+    # localization mode is ported (test_torch_localization.py): it toggles
+    tt.set_localization_mode(True)
+    assert tt.localization_only
+    tt.set_localization_mode(False)
+    assert not tt.localization_only
     with pytest.raises(ValueError):  # a codebook must fill the map's BoW rows
         ttr.Tracker(cam, base.replace(flags=tcfg.FeatureFlags()), device="cpu",
                     vocab=random_vocabulary(base.caps.vocab_words // 2, device="cpu"))
@@ -183,8 +182,6 @@ def test_process_frame_matches_reference(monkeypatch):
     c = sc.CSPEC
     jt = jtr.Tracker(jcam.Camera.make(c.fx, c.fy, c.cx, c.cy, width=c.width, height=c.height,
                                       bf=c.fx * c.baseline), _cfg(jcfg))
-    monkeypatch.setattr(ttr.Tracker, "_ransac_samples",
-                        lambda self, valid, fid: torch.from_numpy(jax_samples(valid.cpu().numpy(), fid).copy()))
     tt = ttr.Tracker(Camera.make(c.fx, c.fy, c.cx, c.cy, "cpu", width=c.width, height=c.height,
                                  bf=c.fx * c.baseline), _cfg(tcfg), device="cpu")
     o = jt.cfg.orb

@@ -97,14 +97,16 @@ def test_from_packed_words_and_update_kf_bow_match_reference():
 def test_build_vocab_resolves_the_vocab_flag():
     """``apps/common.build_vocab``: the seeded codebook for '' and 'lsh', a
     trained one for 'train' (k-means over every 12th sample frame's
-    descriptors), and ORBvoc paths refused (their loaders are not ported)."""
+    descriptors), and an ORBvoc path read by the DBoW2 loaders (a missing
+    file raises; the loaders are held to the reference in
+    ``test_torch_dbow.py``)."""
     from tpuslam_torch.apps.common import build_vocab
     from tpuslam_torch.core import config as tcfg
 
     cfg = tcfg.SlamConfig(caps=tcfg.Capacities(vocab_words=64), orb=tcfg.OrbConfig(n_features=256))
     for name in ("", "lsh"):
         assert build_vocab(name, cfg, "cpu") == (None, cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         build_vocab("ORBvoc.txt", cfg, "cpu")
     with pytest.raises(ValueError):
         build_vocab("train", cfg, "cpu")

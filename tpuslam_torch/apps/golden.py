@@ -51,7 +51,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -178,16 +177,10 @@ def run_golden(n_frames: int = 200, device="cuda:0", small: bool = False, count_
             return pdet, rendered.dets[item[0]][1]
     extra = rendered.depth if rgbd else rendered.right if stereo else None
     prof = Profiler()
-    t0 = time.perf_counter()
     items = ((i, frames[i]) + (() if extra is None else (extra[i],)) for i in range(n_frames))
-    ft = run_loop(tracker, items, prof, count_waits=count_waits, per_frame=per_frame)
-    tracker.flush()
-    if tracker.device.type == "cuda":
-        torch.cuda.synchronize(tracker.device)
-    wall = time.perf_counter() - t0
-    rep = finish(tracker, ft, gt=gt, metric=rgbd or stereo)
+    times = run_loop(tracker, items, prof, count_waits=count_waits, per_frame=per_frame)
+    rep = finish(tracker, times, gt=gt, metric=rgbd or stereo)
     rep.update(first_tracked=tracker.trajectory[0][0] if tracker.trajectory else None,
-               wall_s=wall, frames_per_s=n_frames / wall,
                median_frame_ms=1e3 * rep["median_frame_s"],
                kf_frame_ids=[int(f) for f in tracker._kf_fids])
     if flagship:
@@ -198,8 +191,6 @@ def run_golden(n_frames: int = 200, device="cuda:0", small: bool = False, count_
         rep["stereo_factors"] = int(tracker.ba_factors.get("stereo", 0))
     if rgbd:
         rep["online_planes"] = int(torch.stack(online).sum()) if online else 0
-    if stereo:
-        rep["stereo_matches"] = float(np.median([int(n) for n in tracker.stereo_matches]))
     if loops:
         rep["loop_gates"] = dict(tracker.loop_closer.gates)
         rep["loop_closures"] = [list(c) for c in tracker.loop_closer.closures]

@@ -5,8 +5,8 @@ Every RANSAC hypothesis is a Horn alignment of a 3-point sample, solved
 batched, and scored against every match with the symmetric reprojection
 test (Sim3Solver::CheckInliers); the best one is refitted on its inliers.
 The reference draws the samples from its own random stream inside the
-solver; here they are an input (``initializer.ransac_samples`` draws them),
-so a test can pass the reference's draw.
+solver; here they are an input (``initializer.ransac_samples`` draws the
+same stream on the host), so a test can pass any draw.
 """
 
 from __future__ import annotations

@@ -5,11 +5,11 @@ fitted and scored at once, as batched tensors; the model is chosen by the
 score ratio RH > 0.40 and its motion hypotheses are checked by cheirality,
 reprojection and parallax (Initializer.cc:56-937).
 
-The reference draws its minimal samples with its framework's threefry
-generator inside the solver.  No torch generator reproduces that stream,
-so here the (200, 8) sample indices are an input: :func:`ransac_samples`
-draws them on the CPU from a seed, and a test may pass the reference's own
-samples instead.
+The reference draws its minimal samples with its framework's Threefry-2x32
+generator inside the solver.  Here the (200, 8) sample indices are an
+input: :func:`ransac_samples` draws the reference's own stream on the host
+(the same bits, so the same samples for the same seed and mask), and a test
+may pass any samples instead.
 
 Eigenvectors and singular vectors are defined up to sign; every quantity
 returned here (F and H up to sign, points as ``x[:3] / x[3]``, the chosen
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core import geometry as geo
@@ -34,16 +35,42 @@ class InitResult(NamedTuple):
     used_h: torch.Tensor  # () bool which model won
 
 
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """Threefry-2x32 with 20 rounds (Salmon et al., SC 2011) on uint32 numpy
+    arrays (broadcast), as the reference's framework hashes a counter pair
+    ``(x1, x2)`` under a key ``(k1, k2)``.  Returns the two output words."""
+    k1, k2 = np.asarray(k1, np.uint32), np.asarray(k2, np.uint32)
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
+    x1, x2 = x1 + ks[0], x2 + ks[1]
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x1 = x1 + x2
+            x2 = x1 ^ ((x2 << np.uint32(r)) | (x2 >> np.uint32(32 - r)))
+        x1 = x1 + ks[(i + 1) % 3]
+        x2 = x2 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x1, x2
+
+
 def ransac_samples(valid, seed: int, n_iters: int = 200, n_pick: int = 8):
-    """(n_iters, n_pick) int64 sample indices on the CPU: per iteration, the
-    ``n_pick`` largest of Gumbel noise plus ``-1e9`` on invalid entries
-    (stable top-k), i.e. distinct valid indices drawn uniformly."""
-    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    """(n_iters, n_pick) int64 sample indices on the CPU, the reference's
+    draw bit for bit (initializer.py:281-287, pnp.py:64-68,
+    sim3solver.py:73-77 of the reference): the key ``PRNGKey(seed)`` split
+    into ``n_iters`` keys (counters 0..n_iters-1), per key a uniform float32
+    per entry from the xor of the two hash words, Gumbel noise
+    ``-log(-log(u))`` plus ``-1e9`` on invalid entries, and its ``n_pick``
+    largest, ties to the lower index: distinct valid indices drawn
+    uniformly."""
+    valid = np.asarray(valid.cpu()) if isinstance(valid, torch.Tensor) else np.asarray(valid)
     n = valid.shape[0]
-    u = torch.rand((n_iters, n), generator=gen, dtype=torch.float32)
-    g = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
-    g = g + torch.where(valid.cpu(), 0.0, -1e9)
-    return torch.sort(g, dim=-1, descending=True, stable=True).indices[:, :n_pick]
+    k1, k2 = threefry2x32(0, int(seed) & 0xFFFFFFFF, np.zeros(n_iters, np.uint32), np.arange(n_iters, dtype=np.uint32))
+    b1, b2 = threefry2x32(k1[:, None], k2[:, None], np.zeros((1, n), np.uint32), np.arange(n, dtype=np.uint32)[None])
+    u = (((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    u = np.maximum(u, np.finfo(np.float32).tiny)
+    g = -np.log(-np.log(u)) + np.where(valid, np.float32(0.0), np.float32(-1e9))
+    return torch.from_numpy(np.argsort(-g, axis=1, kind="stable")[:, :n_pick].astype(np.int64))
 
 
 def _normalize(pts, valid):

@@ -30,9 +30,8 @@ def _inv_sigma2(octave):
 
 
 def pnp_samples(valid, seed: int):
-    """The (200, 6) PnP RANSAC samples, drawn on the CPU from a generator
-    seeded by ``seed`` (the candidate slot; the reference keys its draw by
-    ``PRNGKey(cand)``)."""
+    """The (200, 6) PnP RANSAC samples of the reference's draw keyed by
+    ``PRNGKey(seed)``, ``seed`` the candidate slot as in the reference."""
     return ransac_samples(valid, seed, n_iters=200, n_pick=6)
 
 

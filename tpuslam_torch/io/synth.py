@@ -12,12 +12,14 @@ operation by operation in float32: primitives are tested in the oracle's
 order with its strict ``<`` (the earlier primitive keeps a tie), the 3-term
 products are written out elementwise, and the texture hash, which the oracle
 computes in int64, is int64 here too with the same masks.  TF32 stays off.
-``write_sequence`` (PNG output) is not ported: it needs ``cv2``.  Its
-offline detections are: the renderer counts each frame's pixels per
+:func:`write_sequence` writes the golden dataset folder in the reference's
+layout, its PNGs through :mod:`.png` (the card host has no ``cv2``).  The
+offline detections come from the renderer: it counts each frame's pixels per
 primitive and sums the camera-frame points of each room face in the pass
-that makes the frame, and :func:`frame_detections` turns those small arrays
-into the plane and cuboid rows ``write_sequence`` writes, through the same
-text rounding and parsing.  For the depth sensors, :func:`render_uint8`
+that makes the frame, and :func:`plane_rows_for_frame` /
+:func:`cuboid_lines_for_frame` turn those small arrays into the rows
+``write_sequence`` writes (:func:`frame_detections` takes them through the
+same text rounding and parsing in memory).  For the depth sensors, :func:`render_uint8`
 also returns each frame's depth as ``write_sequence`` stores it in its
 uint16 PNGs and ``IclDataset`` reads it back (:func:`quantize_depth`), and
 :func:`right_poses` places a stereo rig's right camera.
@@ -25,6 +27,7 @@ uint16 PNGs and ``IclDataset`` reads it back (:func:`quantize_depth`), and
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import List, Tuple
 
@@ -243,8 +246,13 @@ def quantize_depth(depth):
     reads it back (``/ 5000`` in float32, datasets.py:45-52).  The divisor is
     a tensor: on a card a division by a Python number is a product with its
     reciprocal, which rounds otherwise."""
-    d16 = torch.clamp(depth * DEPTH_FACTOR, 0, 65535).to(torch.int32)
-    return d16.to(torch.float32) / torch.full((1,), DEPTH_FACTOR, device=depth.device)
+    return depth16(depth).to(torch.float32) / torch.full((1,), DEPTH_FACTOR, device=depth.device)
+
+
+def depth16(depth):
+    """The depth PNG's samples, ``uint16(clip(depth * 5000, 0, 65535))``,
+    as an int32 tensor."""
+    return torch.clamp(depth * DEPTH_FACTOR, 0, 65535).to(torch.int32)
 
 
 def right_poses(poses_wc, baseline: float):
@@ -342,3 +350,93 @@ def frame_detections(T_wc, counts, face_sums, spec: SceneSpec, cam: CameraSpec, 
     pdet = planes_from_rows([[float(f"{x:.9f}") for x in r] for r in rows], max_planes)
     names, vals = parse_obj_lines(cuboid_lines_for_frame(T_wc, counts, spec))
     return pdet, cuboids_from_lines(names, vals, T_wc, camera_matrix_np(cam), max_cuboids)
+
+
+# ---------------------------------------------------------------------------
+# The dataset folder on disk (the reference's write_sequence)
+# ---------------------------------------------------------------------------
+
+
+def R_to_quat_np(R: np.ndarray) -> np.ndarray:
+    """(x, y, z, w) of a rotation matrix, Shepperd-style (the reference's
+    ``_R_to_quat_np``, synth.py:308-319, for the odom.txt rows)."""
+    tr = np.trace(R)
+    qw = 0.5 * np.sqrt(max(1.0 + tr, 1e-12))
+    qx = 0.5 * np.sqrt(max(1.0 + R[0, 0] - R[1, 1] - R[2, 2], 1e-12))
+    qy = 0.5 * np.sqrt(max(1.0 - R[0, 0] + R[1, 1] - R[2, 2], 1e-12))
+    qz = 0.5 * np.sqrt(max(1.0 - R[0, 0] - R[1, 1] + R[2, 2], 1e-12))
+    qx *= np.sign(R[2, 1] - R[1, 2]) or 1.0
+    qy *= np.sign(R[0, 2] - R[2, 0]) or 1.0
+    qz *= np.sign(R[1, 0] - R[0, 1]) or 1.0
+    q = np.array([qx, qy, qz, qw])
+    return q / np.linalg.norm(q)
+
+
+def write_sequence(folder: str, n_frames: int = 500, cam: CameraSpec | None = None, spec: SceneSpec | None = None,
+                   total_angle_deg: float = 400.0, min_plane_pix: int = 1500, min_cuboid_pix: int = 400,
+                   fps: float = 30.0, device="cuda:0", n_write: int = 0) -> str:
+    """Render the golden sequence on ``device`` and write the reference's
+    dataset folder (synth.py:366-450): ``rgb/%04d.png`` (uint8 gray),
+    ``depth/%04d.png`` (uint16, metres x 5000), ``plane_seg/`` and
+    ``pred_3d_obj_matched_txt/`` detection rows, ``rgb.txt``, ``depth.txt``,
+    ``odom.txt`` (camera-to-world ``[t x y z qx qy qz qw]``), ``ICL.yaml`` and
+    the ``SYNTH_<n>_<W>x<H>_<seed>_<angle>.done`` marker; a folder with the
+    marker is kept as it is.  ``n_write`` > 0 writes only the first
+    ``n_write`` frames of the ``n_frames`` trajectory (the marker then names
+    ``<n_write>of<n>``).  Returns ``folder``.  The plane rows' centroids
+    are the renderer's float64 face sums over the pixel count, where the
+    reference takes a float32 mean that adds the points one by one (apart by
+    up to pixels x 2^-24 x 6 m; nothing reads them)."""
+    from . import png
+
+    cam = cam or CameraSpec()
+    spec = spec or SceneSpec()
+    count = f"{n_write}of{n_frames}" if n_write > 0 else f"{n_frames}"
+    marker = os.path.join(folder, f"SYNTH_{count}_{cam.width}x{cam.height}_{spec.seed}_{int(total_angle_deg)}.done")
+    if os.path.exists(marker):
+        return folder
+    for sub in ("rgb", "depth", "plane_seg", "pred_3d_obj_matched_txt"):
+        os.makedirs(os.path.join(folder, sub), exist_ok=True)
+    poses = trajectory(n_frames, spec, total_angle_deg=total_angle_deg)
+    if n_write > 0:
+        poses = poses[:n_write]
+    renderer = make_batch_renderer(cam, spec, device)
+    dev = renderer.d_cam.device
+    rgb_lines, depth_lines, odom_lines = [], [], []
+    for f0 in range(0, len(poses), 8):
+        gray, depth, _, counts, sums = renderer(torch.as_tensor(poses[f0:f0 + 8], device=dev), stats=True)
+        gray = gray.to(torch.uint8).cpu().numpy()
+        d16 = depth16(depth).cpu().numpy().astype(np.uint16)
+        counts, sums = counts.cpu().numpy(), sums.cpu().numpy()
+        for j in range(gray.shape[0]):
+            f = f0 + j
+            stamp = f / fps
+            png.imwrite(os.path.join(folder, "rgb", f"{f:04d}.png"), gray[j])
+            png.imwrite(os.path.join(folder, "depth", f"{f:04d}.png"), d16[j])
+            rgb_lines.append(f"{stamp:.6f} rgb/{f:04d}.png")
+            depth_lines.append(f"{stamp:.6f} depth/{f:04d}.png")
+            q = R_to_quat_np(poses[f][:3, :3])
+            tx, ty, tz = poses[f][:3, 3]
+            odom_lines.append(f"{stamp:.6f} {tx:.9f} {ty:.9f} {tz:.9f} {q[0]:.9f} {q[1]:.9f} {q[2]:.9f} {q[3]:.9f}")
+            rows = plane_rows_for_frame(poses[f], counts[j], sums[j], spec, min_plane_pix)
+            with open(os.path.join(folder, "plane_seg", f"{f}_offline_plane_multiplane.txt"), "w") as fh:
+                for r in rows:
+                    fh.write(" ".join(f"{x:.9f}" for x in r) + "\n")
+            lines = cuboid_lines_for_frame(poses[f], counts[j], spec, min_cuboid_pix)
+            with open(os.path.join(folder, "pred_3d_obj_matched_txt", f"{f:04d}_3d_cuboids.txt"), "w") as fh:
+                fh.write("\n".join(lines) + ("\n" if lines else ""))
+    for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines), ("odom.txt", odom_lines)):
+        with open(os.path.join(folder, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    with open(os.path.join(folder, "ICL.yaml"), "w") as fh:
+        fh.write(
+            "%YAML:1.0\n"
+            f"Camera.fx: {cam.fx}\nCamera.fy: {cam.fy}\n"
+            f"Camera.cx: {cam.cx}\nCamera.cy: {cam.cy}\n"
+            "Camera.k1: 0.0\nCamera.k2: 0.0\nCamera.p1: 0.0\nCamera.p2: 0.0\n"
+            f"Camera.width: {cam.width}\nCamera.height: {cam.height}\n"
+            f"Camera.bf: {cam.fx * cam.baseline}\nCamera.fps: {fps}\n"
+        )
+    with open(marker, "w") as fh:
+        fh.write("ok\n")
+    return folder

@@ -21,10 +21,10 @@ The gating statistics come from one program on the device and one small
 copy per keyframe; the full covisibility matrix is copied only when
 candidates survive.  The gating itself is numpy on the host, the
 reference's code on the same arrays (``np.argsort``, ``np.unique`` and the
-streaks), so ties fall as they do there.  The Sim3 RANSAC samples come
-from a torch generator seeded by the current keyframe's slot, as the
-reference keys its draw by ``PRNGKey(kf_cur)``; the draw is
-:meth:`LoopCloser._sim3_samples`, which a test replaces by the reference's.
+streaks), so ties fall as they do there.  The Sim3 RANSAC samples are
+the reference's own draw keyed by ``PRNGKey(kf_cur)``
+(``initializer.ransac_samples``), from :meth:`LoopCloser._sim3_samples`,
+which a test may replace.
 """
 
 from __future__ import annotations
@@ -84,8 +84,8 @@ class LoopCloser:
         self.closures = []  # (current keyframe's frame id, loop keyframe's) per closure
 
     def _sim3_samples(self, valid, kf_cur: int):
-        """The (iters, 3) Sim3 RANSAC samples, drawn on the CPU from a
-        generator seeded by ``kf_cur``."""
+        """The (iters, 3) Sim3 RANSAC samples of the reference's draw keyed
+        by ``PRNGKey(kf_cur)``."""
         return ransac_samples(valid, kf_cur, n_iters=self.cfg.loop.sim3_ransac_max_iters, n_pick=3)
 
     def on_keyframe(self, m: ms.MapState, kf_slot: int, n_kf: int, frame_id: int = -1, fetch=None):

@@ -11,8 +11,9 @@ so word ids equal the reference's on the CPU and on the card.
 
 The codebook is seeded (``random_vocabulary``) or trained by binary k-means
 (``train_kmeans``); both draw from numpy's ``RandomState`` as the reference
-does, so the codebooks are equal bit for bit.  ORBvoc files
-(``load_flat_vocabulary``) need the DBoW2 loaders, which are not ported.
+does, so the codebooks are equal bit for bit.  :func:`load_flat_vocabulary`
+flattens the leaves of a DBoW2 ORBvoc tree (``place/dbow_compat.py``) into
+the codebook, with the tree's idf weights.
 """
 
 from __future__ import annotations
@@ -57,6 +58,21 @@ def _pm1(desc):
 def from_packed_words(word_desc, idf=None) -> Vocabulary:
     """The codebook from packed 256-bit word centroids ((W, 8) int32 words)."""
     return Vocabulary(centers_pm1=_pm1(word_desc), idf=idf)
+
+
+def load_flat_vocabulary(path: str, device="cuda:0", native: bool = False) -> Vocabulary:
+    """A DBoW2 ORBvoc text or binary file (``dbow_compat.load_vocabulary``;
+    ``native``: the compiled text scanner) flattened into the codebook: the
+    leaf centroids in word-id order, with their idf weights (reference
+    vocab.py:64-77).  Word assignment becomes the exact nearest leaf instead
+    of the tree's greedy descent."""
+    from .dbow_compat import load_vocabulary
+
+    tv = load_vocabulary(path, device, native)
+    words = tv.node_word.cpu().numpy()
+    leaves = np.flatnonzero(words >= 0)
+    order = torch.from_numpy(leaves[np.argsort(words[leaves])]).to(tv.node_desc.device)
+    return from_packed_words(tv.node_desc[order], idf=tv.node_weight[order])
 
 
 def train_kmeans(descriptors, n_words: int = 1024, n_iters: int = 8, seed: int = 7) -> Vocabulary:
