@@ -141,18 +141,48 @@ In order, it
      frame <= 1, tracked >= 0.9 x, keyframes within one, planes within 2,
      stereo matches within 10%, metric raw ATE <= 1.5 x + 0.01 m; K1 on
      both decoded views;
- 17. prints each phase's seconds, the slice's frames/s, the device ms of
+ 17. distributed BA on one card (``tpuslam_torch/dist``): on the local
+     BA window of phase 11's welded map at the default capacities (16 + 16
+     keyframes, 4096 points), in a world of one rank over NCCL,
+     ``distributed_lm_iterations`` equal to ``lm.lm_iterations`` bit for
+     bit, and ms per LM iteration (CUDA events) and bytes all-reduced for
+     the local solve, one NCCL rank and two gloo ranks; then two gloo ranks
+     sharing ``cuda:0`` (this script in rank mode, ``--rank``; NCCL refuses
+     two ranks on one device) run ``run_local_ba`` (which must take the
+     distributed path) and ``distributed_local_ba`` on the window regrouped
+     into two covisibility clusters (``dist/shard``) on
+     ``tests/test_global_ba.py``'s map (``ba_map``: its window fixes the
+     gauge and gives both ranks factors, where the welded map's leaves the
+     scale free and every factor on the first rank), and
+     ``distributed_essential_graph`` on phase 11's closure edges: the ranks'
+     results equal bit for bit, and within the DIST_* tolerances of the
+     single solves on the card (chi2 rtol 2e-3, poses and points 2e-3,
+     Sim3s 1e-4).  Every solve of this phase sums in a fixed order.  A
+     ``dist_ba`` line reports it;
+ 18. the 2-rank pipeline: two ranks on ``cuda:0`` each run the ``Tracker``
+     (default flags, loops on) over the first 30 golden frames with every
+     local BA collective, in a fixed summation order; the trajectories must
+     be equal bit for bit, and rank 0's is gated as phase 7's against
+     ``JAX_GOLDEN_LOOPS_30``; K1 and K2 held at each rank's shapes;
+ 19. the stream node: ``python -m tpuslam_torch.apps.stream --sensor mono``
+     (through a wrapper that reports its kernel launches on stderr) with the
+     golden camera's flags and ``--vocab lsh``, fed the first 30 frames of
+     phase 14's folder on its stdin: every output line parses, the frame
+     ids come back in order, and the run is gated as phase 7's against
+     ``JAX_STREAM_30``; K1 and K2 at its shapes (its checkpoint);
+ 20. prints each phase's seconds, the slice's frames/s, the device ms of
      plane segmentation and of stereo matching per frame (CUDA events
      around one call), each kernel's device time (launches queued behind a
      spin, ``kernels/timing.py``) beside its bound and its plain version's
      host-paced time, then one JSON line of kernels (launches summed over
-     the twelve paths that run on the card and launch them: the slice, the
-     card's small replay, the golden, flagship, RGB-D and stereo replays,
-     relocalization, the loops-on replay and the four CLI runs of phases
-     14-16), the card line, and the result.
+     the fourteen paths that run on the card and launch them: the slice,
+     the card's small replay, the golden, flagship, RGB-D and stereo
+     replays, relocalization, the loops-on replay, the four CLI runs of
+     phases 14-16, both pipeline ranks and the stream node), the card line,
+     and the result.
 
 It imports nothing of JAX.  Any failed phase raises, and the script exits
-non-zero without printing the result line.
+non-zero without printing the result line; a failed rank fails its phase.
 """
 
 from __future__ import annotations
@@ -233,8 +263,31 @@ JAX_STEREO_30 = {
     "first_tracked": 0, "tracked": 30, "keyframes_created": 1, "keyframes_live": 1, "points": 687,
     "stereo_matches": 687.5, "ate_raw_m": 0.004978816218322852, "ate_m": 0.004978816218322852,
 }
+# jax_golden_reference.py --loops --frames 30: the 2-rank pipeline's
+# configuration (phase 18), and --stream --frames 30: the JAX stream node on
+# the first 30 frames of the written golden folder (phase 19)
+JAX_GOLDEN_LOOPS_30 = {
+    "first_tracked": 4, "tracked": 26, "keyframes_created": 7, "keyframes_live": 7, "points": 753, "loops": 0,
+    "ate_raw_m": 0.0034977015624721853, "ate_m": 0.003984036118783695, "kf_ate_m": 0.0029202134725473143,
+}
+JAX_STREAM_30 = {
+    "first_tracked": 4, "tracked": 26, "keyframes_created": 7, "points": 753, "loops": 0,
+    "states": {"INIT": 4, "OK": 26, "LOST": 0}, "ate_raw_m": 0.0034977182632096103,
+}
 GOLDEN_FRAMES = 100
 CLI_FRAMES = 100
+PIPELINE_FRAMES = 30
+STREAM_FRAMES = 30
+# phase 17: the factor-sharded solves against the single solve on the card
+# (tests/test_dist.py:25-31, 81, 101-106): chi2 relative, poses, points, and
+# the essential graph's Sim3 vertices absolute; LM iterations timed per call
+DIST_CHI2_RTOL = 2e-3
+DIST_POSE_TOL = 2e-3
+DIST_POINT_TOL = 2e-3
+DIST_SIM3_TOL = 1e-4
+DIST_LM_ITERS = 10
+BA_CENTER = 100  # the local BA's centre keyframe on ``ba_map`` (tests/test_dist.py:95)
+REVISIT_CENTER = 11  # the revisit's newest keyframe
 DEPTH_CLI_FRAMES = 30
 FLAGSHIP_FRAMES = 200
 RGBD_FRAMES = 100
@@ -751,8 +804,9 @@ def close_revisit(dev, caps=None, events=False):
     """The loop closer on :func:`revisit_map` with keyframe 0's group seen
     twice before (``tests/test_loop_e2e.py:137``).  Returns (closed, kf 11's
     pose before and after, kf 0's pose, live points before and after, kf 11's
-    bindings, the map, camera, config, and with ``events`` the device ms of
-    ``on_keyframe`` and of the essential graph inside it)."""
+    bindings, the map, camera, config, the essential graph's inputs (S, fixed,
+    edges, keywords), and with ``events`` the device ms of ``on_keyframe``
+    and of the essential graph inside it)."""
     from tpuslam_torch.backend import posegraph
     from tpuslam_torch.place.loop import LoopCloser
 
@@ -765,16 +819,20 @@ def close_revisit(dev, caps=None, events=False):
     pts_before = int(m.pt_valid.sum())
     timed = {}
     optimize = posegraph.optimize_essential_graph
-    if events:
-        def timed_graph(*a, **kw):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            out = optimize(*a, **kw)
-            ev[1].record()
-            timed["essential_graph"] = ev
-            return out
 
-        posegraph.optimize_essential_graph = timed_graph
+    def recorded_graph(*a, **kw):
+        timed["essential_graph_args"] = (a, kw)
+        if not events:
+            return optimize(*a, **kw)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = optimize(*a, **kw)
+        ev[1].record()
+        timed["essential_graph"] = ev
+        return out
+
+    posegraph.optimize_essential_graph = recorded_graph
+    if events:
         ev_all = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev_all[0].record()
     try:
@@ -791,7 +849,8 @@ def close_revisit(dev, caps=None, events=False):
             ms_["essential_graph_ms"] = a.elapsed_time(b)
     return {"closed": closed, "pose_before": pose_before, "pose_after": m2.kf_pose[11].cpu().numpy(), "T0": T0,
             "pts_before": pts_before, "pts_after": int(m2.pt_valid.sum()), "kf11_pt": m2.kf_pt[11].cpu().numpy(),
-            "map": m2, "cam": cam, "cfg": cfg, "stage_ms": dict(lc.stage_ms), **ms_}
+            "map": m2, "cam": cam, "cfg": cfg, "stage_ms": dict(lc.stage_ms),
+            "essential_graph_args": timed.get("essential_graph_args"), **ms_}
 
 
 def loop_closure_phase(dev):
@@ -799,7 +858,9 @@ def loop_closure_phase(dev):
     fixture's capacities (keyframe 11's pose agreeing), then on the card at
     the default capacities with the gates of ``tests/test_loop_e2e.py``, and
     a global BA on the welded map that ``should_abort`` stops after one
-    chunk.  Returns the numbers for the report."""
+    chunk.  Returns the numbers for the report, and the closure at the
+    default capacities (:func:`close_revisit`'s dict: the welded map and the
+    essential graph's inputs, phase 17's problems)."""
     from tpuslam_torch.backend.local_ba import run_global_ba
     from tpuslam_torch.core.config import Capacities
 
@@ -861,7 +922,7 @@ def loop_closure_phase(dev):
           f"(sync debug mode) in all, {launches / 2:.0f} launches per chunk", flush=True)
     return {"revisit_on_keyframe_ms": full["on_keyframe_ms"], "essential_graph_ms": full["essential_graph_ms"],
             "gba_one_chunk_ms": gba_abort_ms, "gba_two_chunks_ms": gba_ms, "gba_launches": launches,
-            "gba_host_waits": waits, "revisit_card_vs_cpu": d, "revisit_drift": [before, after], "merged": merged}
+            "gba_host_waits": waits, "revisit_card_vs_cpu": d, "revisit_drift": [before, after], "merged": merged}, full
 
 
 def reloc_phase(dev, cuda_match, read_launches, reset_launches):
@@ -1170,6 +1231,403 @@ def depth_cli_phase(work: str, folder: str, left, right, poses_wc, read_launches
     return lines, launches, pair0
 
 
+BA_NKF, BA_NPT, BA_NKP = 128, 1500, 64
+
+
+def ba_map(device):
+    """``tests/test_global_ba.py:23``'s map at its capacities, the problem
+    ``tests/test_dist.py:90`` holds its distributed local BA to, built with
+    numpy and the port's ``mapstate``: 128 keyframes sliding along x, each
+    observing 64 of 1500 points with 0.2 px of noise, every pose but slot 0
+    and every point perturbed.  Keyframe 100's window (8 optimized and 3
+    fixed keyframes, which hold the gauge and the mono scale) puts factors
+    in both halves of the factor axis.  Returns (camera, config, map)."""
+    from tpuslam_torch.core.camera import Camera
+    from tpuslam_torch.core.config import Capacities, SlamConfig
+    from tpuslam_torch.map import mapstate as ms
+
+    rng = np.random.RandomState(0)
+    cfg = SlamConfig(caps=Capacities(max_keypoints=BA_NKP, max_keyframes=BA_NKF, max_points=2048, max_planes=4,
+                                     max_cuboids=2, vocab_words=16, global_ba_keyframes=16, global_ba_points=256,
+                                     local_ba_keyframes=8, local_ba_fixed_keyframes=8, local_ba_points=2048))
+    F, C = 300.0, (160.0, 120.0)
+    cam = Camera.make(F, F, C[0], C[1], device, width=320, height=240)
+    pts = rng.uniform([-4, -3, 4], [4, 3, 12], (BA_NPT, 3)).astype(np.float32)
+    m = ms.empty_map(cfg.caps, device)
+
+    def T(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    gt = np.stack([np.eye(4, dtype=np.float32)] * BA_NKF)
+    gt[:, 0, 3] = 0.02 * np.arange(BA_NKF)
+    gt[:, 1, 3] = 0.002 * np.arange(BA_NKF)
+    first_kf = np.full(BA_NPT, BA_NKF, np.int32)
+    minus1 = T(-np.ones(BA_NKP, np.float32))
+    for k in range(BA_NKF):
+        sel = (np.arange(BA_NKP) * 11 + k * 9) % BA_NPT
+        first_kf[sel] = np.minimum(first_kf[sel], k)
+        pc = (gt[k][:3, :3] @ pts[sel].T).T + gt[k][:3, 3]
+        uv = np.stack([F * pc[:, 0] / pc[:, 2] + C[0], F * pc[:, 1] / pc[:, 2] + C[1]], -1).astype(np.float32)
+        uv += rng.randn(BA_NKP, 2).astype(np.float32) * 0.2
+        m = ms.add_keyframe(m, k, T(gt[k]), k, T(uv), T(np.zeros(BA_NKP, np.int32)), T(np.zeros(BA_NKP, np.float32)),
+                            T(np.zeros((BA_NKP, 8), np.int32)), T(np.ones(BA_NKP, bool)), T(sel.astype(np.int32)),
+                            minus1, minus1)
+    first_kf = np.where(first_kf == BA_NKF, 0, first_kf)
+    m = ms.add_points(m, T(np.arange(BA_NPT)), T(pts), T(np.zeros((BA_NPT, 8), np.int32)),
+                      T(np.zeros((BA_NPT, 3), np.float32)), T(np.zeros(BA_NPT, np.float32)),
+                      T(np.full(BA_NPT, 1e9, np.float32)), T(first_kf), T(np.ones(BA_NPT, bool)))
+    noisy = gt.copy()
+    for k in range(1, BA_NKF):
+        noisy[k][:3, 3] += rng.randn(3).astype(np.float32) * 0.03 * (0.3 + k / BA_NKF)
+    noise = np.zeros(tuple(m.pt_pos.shape), np.float32)
+    noise[:BA_NPT] = rng.randn(BA_NPT, 3).astype(np.float32) * 0.01
+    return cam, cfg, m.replace(kf_pose=T(noisy), pt_pos=m.pt_pos + T(noise))
+
+
+def ba_window(m, cam, cfg, center: int):
+    """The local BA's packed window around keyframe ``center`` at the
+    configuration's capacities."""
+    from tpuslam_torch.backend import local_ba
+
+    c = cfg.caps
+    return local_ba.pack_local_ba(m, center, cam, n_opt=c.local_ba_keyframes, n_fixed=c.local_ba_fixed_keyframes,
+                                  n_local_pts=c.local_ba_points)
+
+
+def clustered_window(pack, n: int):
+    """The window's factors reordered by ``dist/shard`` into ``n`` balanced
+    covisibility clusters of its keyframe slots, so that each of ``n`` ranks
+    holds one cluster's factors."""
+    from tpuslam_torch.dist import shard
+
+    mono = pack.data.mono
+    kf, pt, valid = (x.cpu().numpy() for x in (mono.kf, mono.pt, mono.valid))
+    inc = np.zeros((pack.state.poses.shape[0], pack.state.points.shape[0]))
+    inc[kf[valid], pt[valid]] = 1
+    clusters = shard.cluster_keyframes(inc @ inc.T, pack.window_mask.cpu().numpy(), n)
+    return shard.partition_data(pack.data, clusters, n)
+
+
+def rank_factor_counts(data, n: int):
+    """Valid mono factors in each of ``n`` ranks' contiguous slices."""
+    return [int(x.sum()) for x in data.mono.valid.reshape(n, -1)]
+
+
+def deterministic(on: bool) -> None:
+    """Fixed summation order on the card (as the dataset CLIs run), without
+    the debugging fill of new allocations."""
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+
+def run_ranks(phase: str, work: str, world: int = 2, timeout_s: float = 600.0):
+    """Start ``world`` processes of this script in rank mode (``--rank``) for
+    ``phase`` on ``cuda:0``, joined through a ``file://`` rendezvous in
+    ``work``; wait for all of them, and fail (stopping the others) as soon as
+    one fails or the time is up.  Each rank's output is printed with its
+    rank.  Returns each rank's results (``<work>/<phase>_rank<r>.pt``)."""
+    init = f"file://{os.path.join(work, phase + '_rendezvous')}"
+    logs = [open(os.path.join(work, f"{phase}_rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), "--world", str(world),
+                               "--init", init, "--phase", phase, "--work", work], stdout=logs[r],
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() - t0 > timeout_s:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        for line in log.read().splitlines()[-40:]:
+            print(f"  [{phase} rank {r}] {line}", flush=True)
+        log.close()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"{phase}: rank {r} of {world} exited with {p.returncode} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    return [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def lm_ms(fn) -> float:
+    """Device ms per LM iteration of ``fn`` (DIST_LM_ITERS iterations per call)."""
+    return event_ms(fn, reps=3) / DIST_LM_ITERS
+
+
+def dist_ba_phase(work: str, dev, revisit):
+    """Phase 17: distributed BA on one card.  Timing and traffic on the
+    local BA window of phase 11's welded map at the default capacities
+    (16 + 16 keyframes, 4096 points): in a world of one rank over NCCL,
+    ``distributed_lm_iterations`` must equal ``lm.lm_iterations`` bit for
+    bit; ms per LM iteration and bytes all-reduced for the local solve, one
+    NCCL rank and two gloo ranks.  Then the two gloo ranks, sharing
+    ``cuda:0`` (NCCL refuses two ranks on one device), read the maps from
+    checkpoints and run ``run_local_ba`` (which must take the distributed
+    path) and ``distributed_local_ba`` on :func:`ba_map`'s window regrouped
+    into two covisibility clusters, and ``distributed_essential_graph`` on
+    phase 11's closure edges: the ranks' results equal bit for bit, and
+    within the DIST_* tolerances of the single solves on the card.  (The
+    welded map's window holds 12 keyframes with only keyframe 0 fixed: its
+    scale is free and its solution moves along it with the summation order,
+    and every one of its factors lies in the first rank's half, so the
+    accuracy gates use :func:`ba_map`'s.)  Every solve here sums in a fixed
+    order (:func:`deterministic`).  Returns the report line."""
+    import torch.distributed as tdist
+
+    from tpuslam_torch.backend import local_ba, posegraph
+    from tpuslam_torch.dist import ba as dba, mesh
+    from tpuslam_torch.graph import lm
+    from tpuslam_torch.io import checkpoint
+
+    rev_m, rev_cam, rev_cfg = revisit["map"], revisit["cam"], revisit["cfg"]
+    (S, fixed, edges), eg_kw = revisit["essential_graph_args"]
+    cam, cfg, m = ba_map(dev)
+    deterministic(True)
+    try:
+        win = ba_window(rev_m, rev_cam, rev_cfg, REVISIT_CENTER)
+        w = lm.BAWeights.from_config(rev_cfg.ba)
+        mesh.init_group(f"file://{os.path.join(work, 'nccl_world1')}", 1, 0, dev)
+        check(tdist.get_backend() == "nccl" and mesh.world_size() == 1, "dist BA: a world of 1 rank over NCCL")
+        s1, c1 = lm.lm_iterations(win.state, win.data, w, DIST_LM_ITERS)
+        data1 = dba.pad_factors_for_mesh(win.data, 1)
+        s2, c2 = dba.distributed_lm_iterations(win.state, data1, w, DIST_LM_ITERS)
+        same = torch.equal(c1, c2) and all(torch.equal(a, b) for a, b in zip(s1, s2))
+        check(same, f"dist BA, 1 rank over NCCL: {DIST_LM_ITERS} LM iterations equal to lm.lm_iterations bit for bit "
+              f"(chi2 {float(c1[0]):.3f} -> {float(c1[-1]):.3f})")
+        ms_local = lm_ms(lambda: lm.lm_iterations(win.state, win.data, w, DIST_LM_ITERS))
+        b0 = dba.ALLREDUCE["bytes"]
+        ms_1 = lm_ms(lambda: dba.distributed_lm_iterations(win.state, data1, w, DIST_LM_ITERS))
+        bytes_1 = (dba.ALLREDUCE["bytes"] - b0) / (3 * DIST_LM_ITERS)
+        tdist.destroy_process_group()
+
+        checkpoint.save_map(os.path.join(work, "revisit.npz"), rev_m)
+        checkpoint.save_map(os.path.join(work, "ba_map.npz"), m)
+        torch.save({"revisit": (rev_cam, rev_cfg), "ba_map": (cam, cfg), "eg": (S, fixed, edges, eg_kw)},
+                   os.path.join(work, "ba_inputs.pt"))
+        r0, r1 = run_ranks("ba", work)
+        m1, chi2_1 = local_ba.run_local_ba(m, BA_CENTER, cam, cfg)
+        pack = ba_window(m, cam, cfg, BA_CENTER)
+        w = lm.BAWeights.from_config(cfg.ba)
+        s_cl, d_cl, c_cl = lm.local_ba(pack.state, pack.data, w, phase1_iters=cfg.ba.local_ba_iters_phase1,
+                                       phase2_iters=cfg.ba.local_ba_iters_phase2)
+        S1, _ = posegraph.optimize_essential_graph(S, fixed, edges, **eg_kw)
+    finally:
+        deterministic(False)
+    split = {"revisit_contiguous": rank_factor_counts(dba.pad_factors_for_mesh(win.data, 2), 2),
+             "contiguous": rank_factor_counts(dba.pad_factors_for_mesh(pack.data, 2), 2),
+             "clustered": rank_factor_counts(clustered_window(pack, 2), 2)}
+    print(f"dist BA: valid mono factors on each rank: the welded map's window {split['revisit_contiguous']}; "
+          f"the test map's window, run_local_ba's contiguous split {split['contiguous']}, clustered "
+          f"{split['clustered']}", flush=True)
+    check(min(split["contiguous"]) > 0 and min(split["clustered"]) > 0,
+          "dist BA: both ranks hold factors of the test map's window in both layouts")
+    keys = ("kf_pose", "pt_pos", "kf_pt", "chi2", "S", "costs", "cl_poses", "cl_points", "cl_chi2", "cl_valid")
+    same = all(torch.equal(r0[k], r1[k]) if isinstance(r0[k], torch.Tensor) else r0[k] == r1[k] for k in keys)
+    check(same, "dist BA, 2 gloo ranks on one card: the ranks' maps, chi2s and Sim3s equal bit for bit")
+    dc = float(((r0["chi2"] - chi2_1.cpu()).abs() / chi2_1.cpu().abs()).max())
+    dp = float((r0["kf_pose"] - m1.kf_pose.cpu()).abs().max())
+    dx = float((r0["pt_pos"] - m1.pt_pos.cpu()).abs().max())
+    check(dc <= DIST_CHI2_RTOL, f"dist BA: run_local_ba's chi2 within {DIST_CHI2_RTOL} of the single solve (rel "
+          f"{dc:.2e}; {float(chi2_1[0]):.3f} -> {float(chi2_1[-1]):.3f})")
+    check(dp <= DIST_POSE_TOL, f"dist BA: run_local_ba's keyframe poses within {DIST_POSE_TOL} ({dp:.2e})")
+    check(dx <= DIST_POINT_TOL, f"dist BA: run_local_ba's points within {DIST_POINT_TOL} ({dx:.2e})")
+    check(torch.equal(r0["kf_pt"], m1.kf_pt.cpu()), "dist BA: the same observations unlinked as the single solve")
+    dc_cl = float(((r0["cl_chi2"] - c_cl.cpu()).abs() / c_cl.cpu().abs()).max())
+    dp_cl = float((r0["cl_poses"] - s_cl.poses.cpu()).abs().max())
+    dx_cl = float((r0["cl_points"] - s_cl.points.cpu()).abs().max())
+    check(dc_cl <= DIST_CHI2_RTOL and dp_cl <= DIST_POSE_TOL and dx_cl <= DIST_POINT_TOL,
+          f"dist BA, clustered window: distributed_local_ba against lm.local_ba, chi2 rel {dc_cl:.2e}, poses "
+          f"{dp_cl:.2e}, points {dx_cl:.2e}")
+    check(r0["cl_valid"] == int(d_cl.mono.valid.sum()), f"dist BA, clustered window: {r0['cl_valid']} observations "
+          f"kept by the gates, single solve {int(d_cl.mono.valid.sum())}")
+    dS = float((r0["S"] - S1.cpu()).abs().max())
+    check(dS <= DIST_SIM3_TOL, f"dist BA: essential graph Sim3s within {DIST_SIM3_TOL} ({dS:.2e}), "
+          f"{int(edges.valid.sum())} edges over {S.shape[0]} vertices")
+    line = {"lm_iters": DIST_LM_ITERS, "ms_per_iter_local": ms_local, "ms_per_iter_1_rank_nccl": ms_1,
+            "ms_per_iter_2_ranks_gloo": r0["ms_per_iter"], "allreduce_bytes_per_iter_1_rank": bytes_1,
+            "allreduce_bytes_per_iter_2_ranks": r0["bytes_per_iter"], "allreduce_per_iter": r0["allreduce_per_iter"],
+            "window": {"keyframes": int(win.state.poses.shape[0]), "points": int(win.state.points.shape[0]),
+                       "mono_factors": int(win.data.mono.valid.sum())},
+            "rank_factors": split, "chi2_rel": dc, "pose_max_diff": dp, "point_max_diff": dx,
+            "clustered_chi2_rel": dc_cl, "clustered_pose_max_diff": dp_cl, "clustered_point_max_diff": dx_cl,
+            "sim3_max_diff": dS}
+    print("dist_ba " + json.dumps(line), flush=True)
+    return line
+
+
+def ba_rank(work: str, dev, r: int):
+    """Phase 17's rank: the collective solves and the timed LM iterations."""
+    import torch.distributed as tdist
+
+    from tpuslam_torch.backend import local_ba
+    from tpuslam_torch.dist import ba as dba, mesh
+    from tpuslam_torch.graph import lm
+    from tpuslam_torch.io import checkpoint
+
+    deterministic(True)
+    k = mesh.world_size()
+    inp = torch.load(os.path.join(work, "ba_inputs.pt"), map_location=dev, weights_only=False)
+    rev_m, _ = checkpoint.load_map(os.path.join(work, "revisit.npz"), dev)
+    m, _ = checkpoint.load_map(os.path.join(work, "ba_map.npz"), dev)
+    rev_cam, rev_cfg = inp["revisit"]
+    cam, cfg = inp["ba_map"]
+    check(local_ba.use_distributed_ba(cfg), f"rank {r}: run_local_ba takes the distributed path ({k} ranks, "
+          f"{tdist.get_backend()})")
+    m_d, chi2 = local_ba.run_local_ba(m, BA_CENTER, cam, cfg)
+    pack = ba_window(m, cam, cfg, BA_CENTER)
+    w = lm.BAWeights.from_config(cfg.ba)
+    s_cl, d_cl, c_cl = dba.distributed_local_ba(pack.state, clustered_window(pack, k), w,
+                                                phase1_iters=cfg.ba.local_ba_iters_phase1,
+                                                phase2_iters=cfg.ba.local_ba_iters_phase2)
+    S, fixed, edges, kw = inp["eg"]
+    S_d, costs = dba.distributed_essential_graph(S, fixed, dba.pad_edges_for_mesh(edges, k), **kw)
+    win = ba_window(rev_m, rev_cam, rev_cfg, REVISIT_CENTER)
+    data_p = dba.pad_factors_for_mesh(win.data, k)
+    w = lm.BAWeights.from_config(rev_cfg.ba)
+    tdist.barrier()
+    b0, c0 = dba.ALLREDUCE["bytes"], dba.ALLREDUCE["calls"]
+    ms = lm_ms(lambda: dba.distributed_lm_iterations(win.state, data_p, w, DIST_LM_ITERS))
+    n = 3 * DIST_LM_ITERS
+    return {"kf_pose": m_d.kf_pose.cpu(), "pt_pos": m_d.pt_pos.cpu(), "kf_pt": m_d.kf_pt.cpu(), "chi2": chi2.cpu(),
+            "cl_poses": s_cl.poses.cpu(), "cl_points": s_cl.points.cpu(), "cl_chi2": c_cl.cpu(),
+            "cl_valid": int(d_cl.mono.valid.sum()), "S": S_d.cpu(), "costs": costs.cpu(), "ms_per_iter": ms,
+            "bytes_per_iter": (dba.ALLREDUCE["bytes"] - b0) / n, "allreduce_per_iter": (dba.ALLREDUCE["calls"] - c0) / n}
+
+
+def pipeline_rank(work: str, dev, r: int):
+    """Phase 18's rank: the ``Tracker`` (default flags, loops on) over the
+    first 30 golden frames with every local BA collective, in a fixed
+    summation order; K1 and K2 held at its shapes."""
+    from tpuslam_torch.apps import golden
+    from tpuslam_torch.dist import ba as dba
+    from tpuslam_torch.kernels import cuda_fast, cuda_match, orb
+
+    deterministic(True)
+    cspec, _ = golden.golden_setup(loops=True)
+    rendered = golden.render_golden(PIPELINE_FRAMES, cspec, dev)
+    wrappers = (cuda_fast.fast_nms_score, cuda_match.hamming_top2)
+    for wr in wrappers:
+        wr.launches = 0
+    rep, tr = golden.run_golden(PIPELINE_FRAMES, dev, rendered=rendered, loops=True)
+    launches = {"fast_nms": wrappers[0].launches, "hamming_top2": wrappers[1].launches}
+    (pyr, dims), k2_in = tracker_kernel_cases(tr, rendered.frames[0])
+    k1_err = hold_k1({f"pipeline_rank{r}_frame0": (pyr, dims)}, cuda_fast, orb)
+    k2_err = hold_k2({f"pipeline_rank{r}_frame_vs_ref_kf": k2_in}, cuda_match)
+    return {"rep": {k: rep.get(k) for k in GOLDEN_KEYS + ("loops",)}, "launches": launches,
+            "fids": np.array([f for f, _ in tr.trajectory]), "poses": np.stack([p for _, p in tr.trajectory]),
+            "k1_err": k1_err, "k2_err": k2_err, "allreduce_calls": dba.ALLREDUCE["calls"]}
+
+
+def pipeline_phase(work: str):
+    """Phase 18: two ranks on ``cuda:0`` replay the first 30 golden frames
+    with the ``Tracker``, every local BA collective; their trajectories must
+    be equal bit for bit, and rank 0's report is gated as phase 7's against
+    ``JAX_GOLDEN_LOOPS_30``.  Returns (report line, launches summed over
+    the ranks, K1 and K2 max |err|)."""
+    r0, r1 = run_ranks("pipeline", work)
+    check(np.array_equal(r0["fids"], r1["fids"]) and np.array_equal(r0["poses"], r1["poses"]),
+          f"pipeline: the two ranks' trajectories equal bit for bit ({len(r0['fids'])} frames)")
+    rep = r0["rep"]
+    line = {**rep, "allreduce_calls": r0["allreduce_calls"], "launches_per_rank": r0["launches"]}
+    print("pipeline " + json.dumps(line), flush=True)
+    check(r0["allreduce_calls"] == r1["allreduce_calls"] > 0,
+          f"pipeline: every local BA collective ({r0['allreduce_calls']} all-reduces per rank)")
+    replay_gates("pipeline", rep, JAX_GOLDEN_LOOPS_30, PIPELINE_FRAMES)
+    check(rep["loops"] == JAX_GOLDEN_LOOPS_30["loops"], f"pipeline: {rep['loops']} loops closed")
+    launches = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    for x in (r0, r1):
+        check(x["launches"]["fast_nms"] == PIPELINE_FRAMES and x["launches"]["hamming_top2"] >= rep["tracked"] - 1,
+              f"pipeline: each rank launched fast_nms {x['launches']['fast_nms']} and hamming_top2 "
+              f"{x['launches']['hamming_top2']} times")
+    return line, launches, max(r0["k1_err"], r1["k1_err"]), max(r0["k2_err"], r1["k2_err"])
+
+
+STREAM_WRAPPER = """import json, runpy, sys
+from tpuslam_torch.kernels import cuda_fast, cuda_match
+runpy.run_module("tpuslam_torch.apps.stream", run_name="__main__")
+print("launches " + json.dumps({"fast_nms": cuda_fast.fast_nms_score.launches,
+                                "hamming_top2": cuda_match.hamming_top2.launches}), file=sys.stderr)
+"""
+
+
+def stream_phase(work: str, folder: str, dev, gt):
+    """Phase 19: ``python -m tpuslam_torch.apps.stream --sensor mono`` with the
+    golden camera's flags and ``--vocab lsh`` as a subprocess, fed the first
+    30 frames of phase 14's folder on its stdin.  Every output line must
+    parse, the frame ids come back in order, and the run is gated as phase
+    7's against ``JAX_STREAM_30`` (raw ATE from its ``TrajectoryRaw.txt``).
+    The subprocess reports its kernel launches on stderr.  Returns (report
+    line, launches, K1/K2 cases at its shapes)."""
+    from tpuslam_torch.apps.golden import golden_setup
+    from tpuslam_torch.io import checkpoint, png
+
+    cspec, _ = golden_setup()
+    out, ck = os.path.join(work, "stream_out"), os.path.join(work, "stream.npz")
+    args = ["--sensor", "mono", "--fx", str(cspec.fx), "--fy", str(cspec.fy), "--cx", str(cspec.cx), "--cy",
+            str(cspec.cy), "--bf", str(cspec.fx * cspec.baseline), "--vocab", "lsh", "--out", out, "--checkpoint", ck]
+    lines = "".join(f"{f} {folder}/rgb/{f:04d}.png\n" for f in range(STREAM_FRAMES))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", STREAM_WRAPPER, *args], input=lines, capture_output=True, text=True,
+                          timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines()[-12:]:
+        print(f"  [stream stderr] {line}", flush=True)
+    check(proc.returncode == 0, f"stream: the node exited with {proc.returncode} ({wall:.1f} s)")
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()]  # every line must parse
+    frames = [r for r in rows if "frame_id" in r]
+    report = rows[-1]
+    check([r["frame_id"] for r in frames] == list(range(STREAM_FRAMES)) and len(rows) == STREAM_FRAMES + 1,
+          f"stream: {len(rows)} JSON lines, the {STREAM_FRAMES} frame ids in order, then the report")
+    launches = json.loads([ln for ln in proc.stderr.splitlines() if ln.startswith("launches ")][-1][9:])
+    loc = localization_after_resume(out, 0, gt)
+    states = {k: sum(r["state"] == k for r in frames) for k in ("INIT", "OK", "LOST")}
+    rep = {"frames": report["frames"], "tracked": report["tracked"], "first_tracked": loc["loc_first_tracked"],
+           "keyframes_created": report["keyframes_created"], "points": report["points"], "loops": report["loops"],
+           "states": states, "ate_rmse_raw_m": loc.get("loc_ate_raw_m"), "wall_s": report["wall_s"],
+           "frames_per_s": report["frames_per_s"], "process_s": wall, "launches": launches}
+    print("stream " + json.dumps(rep), flush=True)
+    replay_gates("stream", rep, JAX_STREAM_30, STREAM_FRAMES)
+    check(rep["loops"] == JAX_STREAM_30["loops"], f"stream: {rep['loops']} loops closed")
+    check(launches["fast_nms"] == STREAM_FRAMES and launches["hamming_top2"] >= rep["tracked"] - 1,
+          f"stream: fast_nms launched {launches['fast_nms']} and hamming_top2 {launches['hamming_top2']} times")
+    m, extra = checkpoint.load_map(ck, dev)
+    gray0 = png.imread_gray(os.path.join(folder, "rgb", "0000.png"), native=True)
+    return rep, launches, disk_kernel_cases(dev, gray0, m, extra["ref_kf"])
+
+
+def rank_main(argv) -> int:
+    """Rank mode, started by :func:`run_ranks`: join the gloo group on
+    ``cuda:0`` and run one rank of phase 17 (``--phase ba``) or 18
+    (``--phase pipeline``)."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    for name in ("--rank", "--world"):
+        ap.add_argument(name, type=int, required=True)
+    for name in ("--init", "--phase", "--work"):
+        ap.add_argument(name, required=True)
+    a = ap.parse_args(argv)
+    import tpuslam_torch  # noqa: F401  (pins float32 matmuls)
+    from tpuslam_torch.dist import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    mesh.init_group(a.init, a.world, a.rank, dev, backend="gloo", timeout_s=300)
+    try:
+        out = {"ba": ba_rank, "pipeline": pipeline_rank}[a.phase](a.work, dev, a.rank)
+        torch.save(out, os.path.join(a.work, f"{a.phase}_rank{a.rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"rank {a.rank}: done", flush=True)
+    return 0
+
+
 def random_descriptors(n, seed, device):
     rng = np.random.RandomState(seed)
     words = rng.randint(0, 1 << 32, (n, 8), dtype=np.uint64).astype(np.uint32)
@@ -1387,7 +1845,7 @@ def main() -> int:
     t_phase = time.perf_counter()
 
     # --- 11. loop closure on the drifted revisit ----------------------------------
-    loop = loop_closure_phase(dev)
+    loop, revisit = loop_closure_phase(dev)
     phase_s["loop_closure"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
@@ -1441,9 +1899,27 @@ def main() -> int:
         k1_err = max(k1_err, hold_k1({"stereo_cli_left0": (pyr_l, ex.live_dims),
                                       "stereo_cli_right0": (pyr_r, ex.live_dims)}, cuda_fast, orb))
         phase_s["depth_clis"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+        # --- 17-19. distributed BA, the 2-rank pipeline, the stream node ---------------
+        dist_ba = dist_ba_phase(work, dev, revisit)
+        phase_s["dist_ba"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+        pipe, launches_pipe, k1_pipe, k2_pipe = pipeline_phase(work)
+        print(f"launches: pipeline (both ranks) {launches_pipe}", flush=True)
+        k1_err, k2_err = max(k1_err, k1_pipe), max(k2_err, k2_pipe)
+        phase_s["pipeline"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+        stream, launches_stream, (k1_st, k2_st) = stream_phase(work, folder, dev, gold_rendered.gt)
+        print(f"launches: stream node {launches_stream}", flush=True)
+        k1_err = max(k1_err, hold_k1({"stream_decoded_frame0": k1_st}, cuda_fast, orb))
+        k2_err = max(k2_err, hold_k2({"stream_frame0_vs_ref_kf": k2_st}, cuda_match))
+        phase_s["stream"] = time.perf_counter() - t_phase
     print("phase seconds " + json.dumps(phase_s), flush=True)
 
-    # --- 17. report -------------------------------------------------------------
+    # --- 20. report -------------------------------------------------------------
     print(json.dumps({
         "slice_frames_per_s": fps, "slice_seconds": dt, "frames": n_frames,
         "median_n_final": float(np.median(n_final)), "final_x_m": x_last, "expected_x_m": x_expect,
@@ -1461,13 +1937,15 @@ def main() -> int:
         "localize_ate_raw_m": loc["loc_ate_raw_m"],
         "rgbd_cli_frames_per_s": depth_lines["rgbd_cli"]["frames_per_s"],
         "stereo_cli_frames_per_s": depth_lines["stereo_cli"]["frames_per_s"],
+        "dist_ba": dist_ba, "pipeline_frames_per_s": pipe["frames_per_s"], "stream_frames_per_s": stream["frames_per_s"],
         **loop, "phase_s": phase_s, "total_s": sum(phase_s.values()),
     }))
     kernels = [
         {"name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
          "launches": sum(n[name] for n in (launches, launches_small, launches_golden, launches_flag,
                                            launches_rgbd, launches_ster, launches_reloc, launches_loops,
-                                           launches_cli, launches_loc, *launches_depth.values())),
+                                           launches_cli, launches_loc, *launches_depth.values(), launches_pipe,
+                                           launches_stream)),
          "max_abs_err": err, **k}
         for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
     ]
@@ -1479,4 +1957,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if "--rank" in sys.argv[1:] else main())

@@ -69,14 +69,29 @@ the frames it tracked (``loc_tracked``), the first of them
 (``loc_ate_raw_m``), read from its ``TrajectoryRaw.txt``;
 ``chip_smoke.py``'s ``JAX_LOCALIZE_100`` holds the run of ``--localize
 --frames 100``.
+
+``--stream`` drives the JAX package's stdin stream node
+(``tpuslam.apps.stream``, mono, loop closing on, ``--vocab lsh``, the golden
+``ICL.yaml``'s camera as flags) over the first ``--frames`` golden frames
+written as ``--localize`` writes them, one ``<frame_id> <path>`` line each,
+as ``chip_smoke.py``'s stream phase pipes them to the port's node.  It
+prints one JSON line: the frame lines' ids in order (``frame_ids_in_order``),
+their states counted (``states``), the final report, and from its
+``TrajectoryRaw.txt`` the frames tracked, the first of them and the
+Sim3-aligned raw ATE.  ``chip_smoke.py``'s ``JAX_STREAM_30`` holds the run
+of ``--stream --frames 30``, and its ``JAX_GOLDEN_LOOPS_30`` (the 2-rank
+pipeline's reference) the run of ``--loops --frames 30``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import sys
 import tempfile
 import time
 
@@ -235,6 +250,39 @@ def localize(n: int):
     return rep
 
 
+def stream(n: int):
+    """``--stream``: the first ``n`` golden frames through the JAX stream node."""
+    from tpuslam.apps import stream as jstream
+
+    cam = synth.CameraSpec()
+    frames, poses_wc, _, _ = render(n, cam)
+    work = tempfile.mkdtemp(prefix="golden_stream_")
+    folder = write_folder(os.path.join(work, "seq"), frames, poses_wc, cam)
+    lines = "".join(f"{f} {folder}/rgb/{f:04d}.png\n" for f in range(n))
+    out, buf, stdin = os.path.join(work, "out"), io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO(lines)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            jstream.main(["--sensor", "mono", "--fx", str(cam.fx), "--fy", str(cam.fy), "--cx", str(cam.cx),
+                          "--cy", str(cam.cy), "--bf", str(cam.fx * cam.baseline), "--vocab", "lsh", "--out", out])
+    finally:
+        sys.stdin = stdin
+    wall = time.perf_counter() - t0
+    rows = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    frame_rows = [r for r in rows if "frame_id" in r]
+    gt = [np.linalg.inv(np.asarray(p, np.float64)) for p in poses_wc]
+    loc = localization_after_resume(out, 0, gt)
+    report = rows[-1]
+    rep = {"frames": n, "frame_ids_in_order": [r["frame_id"] for r in frame_rows] == list(range(n)),
+           "states": {k: sum(r["state"] == k for r in frame_rows) for k in ("INIT", "OK", "LOST")},
+           "tracked": report["tracked"], "first_tracked": loc["loc_first_tracked"],
+           "keyframes_created": report["keyframes_created"], "points": report["points"], "loops": report["loops"],
+           "ate_raw_m": loc.get("loc_ate_raw_m"), "wall_s": wall}
+    print(json.dumps(rep))
+    return rep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=200)
@@ -248,9 +296,13 @@ def main(argv=None):
     ap.add_argument("--loops", action="store_true", help="loop closing on (the Tracker's default)")
     ap.add_argument("--localize", action="store_true",
                     help="mono_icl from a written folder, then --resume --localization-only on it")
+    ap.add_argument("--stream", action="store_true",
+                    help="the stdin stream node on the written golden frames (mono, --vocab lsh)")
     args = ap.parse_args(argv)
     if args.localize:
         return localize(args.frames)
+    if args.stream:
+        return stream(args.frames)
     if args.small:
         cspec = synth.CameraSpec(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
         caps = Capacities(max_keypoints=512, max_keyframes=256, max_points=8192, local_ba_points=2048)

@@ -15,7 +15,8 @@ on the CPU (``--device cpu``):
 * each of the other six CLIs (``mono_tum`` with ``--vocab train``,
   ``rgbd_tum``, ``mono_kitti``, ``stereo_kitti``, ``mono_euroc``,
   ``stereo_euroc``) runs on a tiny folder of its layout and tracks;
-* every CLI takes the reference's flags, and ``--viz-every`` raises.
+* every CLI takes the reference's flags and runs with them, ``--viz-every``
+  included.
 """
 
 import importlib
@@ -105,14 +106,23 @@ def test_other_clis_run_from_disk(tmp_path, app):
         assert rep["ate_rmse_raw_m"] < 0.05 and rep["decode_ms_per_image"]["right"] > 0
 
 
+WRITERS = {"mono_icl": tds.write_icl, "rgbd_icl": tds.write_tum, "mono_tum": tds.write_icl, "rgbd_tum": tds.write_tum,
+           "mono_kitti": tds.write_kitti, "stereo_kitti": tds.write_kitti, "mono_euroc": tds.write_euroc,
+           "stereo_euroc": tds.write_euroc}
+
+
 @pytest.mark.parametrize("app", APPS)
 def test_flags_and_viz_every(tmp_path, app):
+    """Every CLI takes the reference's flags and runs with them, ``--viz-every``
+    included (it dumps into ``<out>/viz``)."""
     mod = importlib.import_module(f"tpuslam_torch.apps.{app}")
-    root = tds.write_icl(str(tmp_path / "seq"), n_frames=2)
-    flags = ["--settings", "x.yaml", "--max-frames", "2", "--out", str(tmp_path), "--save-kitti", "--checkpoint",
-             "c.npz", "--features", "64", "--max-kf-gap", "3", "--vocab", "lsh", "--device", "cpu", "--viz-every", "5"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mod.main([root] + flags)
+    root = WRITERS[app](str(tmp_path / "seq"), n_frames=2)
+    out, ck = tmp_path / "out", tmp_path / "c.npz"
+    flags = ["--settings", "x.yaml", "--max-frames", "2", "--out", str(out), "--save-kitti", "--checkpoint",
+             str(ck), "--features", "64", "--max-kf-gap", "3", "--vocab", "lsh", "--device", "cpu", "--viz-every", "5"]
+    rep = mod.main([root] + flags)
+    assert rep["frames"] == 2 and os.path.isdir(out / "viz") and os.path.exists(ck)
+    assert os.path.exists(out / "CameraTrajectory_kitti.txt")
     with pytest.raises(SystemExit):
         mod.main(["--help"])
 

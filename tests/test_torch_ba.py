@@ -18,7 +18,8 @@ them: within 0.01 px after the outlier gates, 0.05 px after the first five
 iterations (before the gate, observations 25 px off pull on their points).
 With the scale gauge fixed (a second fixed keyframe) poses agree within
 1e-4; in ``run_local_ba``'s own window one keyframe is fixed and the scale
-is free, and poses agree within 2e-3.  A trial step with a non-finite pose
+is free, so each package's poses are held to a float64 solve of the same
+BA (the port within 1e-3, the reference within 3e-3).  A trial step with a non-finite pose
 is the one place the port and the reference differ on purpose: the port
 rejects it (``lm.lm_iterations``).
 """
@@ -221,17 +222,57 @@ def test_lm_rejects_a_non_finite_trial_that_the_reference_accepts(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(s_got, st_t))
 
 
+def _local_ba_float64(m_t, cfg_t):
+    """The window poses of ``run_local_ba``'s solve redone in float64: the
+    same float32 pack, weights and iterations, the variables and
+    measurements cast to float64.  Returns (optimized window slots, their
+    poses, the final mono validity)."""
+    caps = cfg_t.caps
+    pack = tba.pack_local_ba(m_t, 4, _tcam(), n_opt=caps.local_ba_keyframes, n_fixed=caps.local_ba_fixed_keyframes,
+                             n_local_pts=caps.local_ba_points)
+
+    def f64(b):
+        return type(b)(*(x.double() if x.dtype == torch.float32 else x for x in b))
+
+    state, data = f64(pack.state), pack.data._replace(mono=f64(pack.data.mono))
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        s64, d64, _ = tlm.local_ba(state, data, tlm.BAWeights.from_config(cfg_t.ba),
+                                   phase1_iters=cfg_t.ba.local_ba_iters_phase1,
+                                   phase2_iters=cfg_t.ba.local_ba_iters_phase2)
+    finally:
+        torch.set_default_dtype(default)
+    free = (pack.window_mask & ~pack.data.pose_fixed).numpy()
+    return pack.window_ids.numpy()[free], s64.poses.numpy()[free], d64.mono
+
+
 def test_run_local_ba_matches_reference_from_a_carried_map():
+    """Poses are held to a float64 solve of the same BA, not to each other:
+    the window's scale is free (one fixed keyframe), and where along it the
+    reference's float32 solve lands depends on the host XLA compiles for
+    (on one host 2.15e-3 from the float64 poses, so 2.45e-3 from the
+    port's, at the window's centre keyframe; the port 3.0e-4).  Held: the
+    port within 1e-3 of the float64 poses and no further than the
+    reference, the reference within 3e-3 (both checks show the float64
+    solve is the BA both packages solve); bindings, validity and chi2 as
+    before, and the two solutions' projections within 0.01 px."""
     m = _disturbed_map()
     cfg_j = SlamConfig().replace(caps=sc.CAPS)
     cfg_t = tcfg.SlamConfig().replace(caps=tcfg.Capacities(**sc.CAPS.__dict__))
     ref, c_ref = jba.run_local_ba(m, 4, sc.jax_camera(), cfg_j)
-    got, c_got = tba.run_local_ba(tms.map_from_numpy(sc.map_fields(m), "cpu"), 4, _tcam(), cfg_t)
+    m_t = tms.map_from_numpy(sc.map_fields(m), "cpu")
+    got, c_got = tba.run_local_ba(m_t, 4, _tcam(), cfg_t)
     np.testing.assert_allclose(c_got.numpy(), np.asarray(c_ref), rtol=1e-3)
     np.testing.assert_array_equal(got.kf_pt.numpy(), np.asarray(ref.kf_pt))
     np.testing.assert_array_equal(got.pt_valid.numpy(), np.asarray(ref.pt_valid))
     assert (np.asarray(ref.kf_pt) != np.asarray(m.kf_pt)).sum() >= 4  # outliers unlinked
-    np.testing.assert_allclose(got.kf_pose.numpy(), np.asarray(ref.kf_pose), atol=2e-3, rtol=0)
+    slots, poses64, mono64 = _local_ba_float64(m_t, cfg_t)
+    assert len(slots) == 4 and int(mono64.valid.sum()) > 200
+    err_t = np.abs(got.kf_pose.numpy()[slots] - poses64).max()
+    err_j = np.abs(np.asarray(ref.kf_pose)[slots] - poses64).max()
+    assert err_t <= 1e-3 and err_t <= err_j, (err_t, err_j)
+    assert err_j <= 3e-3, err_j
     kf_pt = np.asarray(ref.kf_pt)
     kf, kp = np.nonzero((kf_pt >= 0) & np.asarray(ref.kf_valid)[:, None])
     _assert_same_projections(got.kf_pose, got.pt_pos, ref.kf_pose, ref.pt_pos, kf, kf_pt[kf, kp])

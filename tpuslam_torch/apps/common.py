@@ -52,7 +52,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                     help="force a keyframe at least every N frames (the reference's mMaxFrames); 0 keeps the "
                     "config default")
     ap.add_argument("--viz-every", type=int, default=0,
-                    help="every N frames, dump map and frame overlay PNGs to <out>/viz/ (not ported: raises)")
+                    help="every N frames, dump map and frame overlay PNGs to <out>/viz/ (headless Viewer/MapDrawer/"
+                    "FrameDrawer analogue; needs cv2 and matplotlib)")
     ap.add_argument("--vocab", default="train",
                     help="place-recognition vocabulary: a DBoW2 ORBvoc .txt/.bin path (its leaves flattened "
                     "into the codebook), 'train' (default: k-means over the sequence's own ORB descriptors) or "
@@ -98,9 +99,13 @@ def make_tracker(args, cam: Camera, cfg: SlamConfig, sample_grays=None) -> Track
     turns on that order (PERF.md section 6).  It costs local BA time.  The
     debugging fill of new allocations that comes with the mode stays off:
     nothing here reads memory before writing it, and the fill would add a
-    launch per allocation to a launch-bound frame."""
+    launch per allocation to a launch-bound frame.
+
+    With ``--viz-every`` it first imports the drawing packages
+    (:func:`require_viz`), so a host without them fails before the first
+    frame."""
     if getattr(args, "viz_every", 0) > 0:
-        raise NotImplementedError("--viz-every: viz/ is not ported (ROADMAP queue 1, item 11)")
+        require_viz()
     if getattr(args, "max_kf_gap", 0):
         cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, max_frames_between_kf=args.max_kf_gap))
     device = torch.device(args.device)
@@ -117,6 +122,39 @@ def make_tracker(args, cam: Camera, cfg: SlamConfig, sample_grays=None) -> Track
     if getattr(args, "localization_only", False):
         tracker.set_localization_mode(True)
     return tracker
+
+
+def require_viz() -> None:
+    """Import what ``--viz-every`` draws with (``viz/``: cv2 for the frame
+    overlay, matplotlib for the map); raises ImportError naming the missing
+    package."""
+    import importlib
+
+    for name, dist_name in (("cv2", "opencv-python"), ("matplotlib", "matplotlib")):
+        try:
+            importlib.import_module(name)
+        except ImportError as e:
+            raise ImportError(f"--viz-every needs the {name} package ({dist_name}), which is not installed") from e
+
+
+def viz_kw(args) -> dict:
+    """:func:`run_loop`'s ``--viz-every`` keywords: the period and ``<out>/viz``."""
+    return {"viz_every": args.viz_every, "viz_dir": os.path.join(args.out, "viz")}
+
+
+def _dump_viz(tracker: Tracker, frame_id: int, gray, viz_dir: str) -> None:
+    """Headless Viewer snapshot (common.py:218-238 of the reference): the
+    frame overlay and, once a keyframe exists, the 3D map as PNGs."""
+    import cv2
+
+    from ..viz import draw_frame_overlay, save_map_png
+
+    f, kp_pt = tracker.last_frame, tracker.last_kp_pt
+    overlay = draw_frame_overlay(gray, f.uv, f.valid, kp_bound=kp_pt >= 0 if kp_pt is not None else None,
+                                 state=tracker.state, n_kf=tracker.n_kf, n_pt=tracker.n_pt)
+    cv2.imwrite(os.path.join(viz_dir, f"frame_{frame_id:05d}.png"), overlay)
+    if tracker.n_kf > 0:
+        save_map_png(os.path.join(viz_dir, f"map_{frame_id:05d}.png"), tracker.map, n_kf=tracker.n_kf)
 
 
 def build_vocab(name: str, cfg, device, sample_grays=None, native: bool = False):
@@ -176,7 +214,8 @@ class LoopTimes(NamedTuple):
     wall_s: float  # the whole loop, reads and decodes included
 
 
-def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False, per_frame=None):
+def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False, per_frame=None, viz_every: int = 0,
+             viz_dir: str = ""):
     """Drive the tracker over ``(frame_id, gray)`` items, ``(frame_id, gray,
     depth)`` for an RGB-D tracker and ``(frame_id, left, right)`` for a
     stereo one (common.py:167-215 of the reference: a stereo item goes to
@@ -196,8 +235,12 @@ def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False,
     made a keyframe, "init" when the tracker was not tracking before it (its
     keyframes included), else "hot".  The waits are what torch's sync debug mode reports (the
     tracker's reads among them) plus the tracker's waits on CUDA events,
-    which that mode does not see."""
+    which that mode does not see.  With ``viz_every`` > 0, every frame whose id
+    it divides dumps the frame overlay and the map into ``viz_dir``
+    (``frame_%05d.png``, ``map_%05d.png``), as the reference's loop does."""
     t_loop = time.perf_counter()
+    if viz_every:
+        os.makedirs(viz_dir, exist_ok=True)
     dev = tracker.device
     sensor = tracker.cfg.sensor
     frame_times = []
@@ -238,6 +281,8 @@ def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False,
             kind = "init" if not tracking else "keyframe" if len(tracker._kf_fids) > n_kf else "hot"
             tracker.frame_waits.append((fid, kind, sum(syncs.values()), syncs))
         frame_times.append(time.perf_counter() - t0)
+        if viz_every and fid % viz_every == 0 and tracker.last_frame is not None:
+            _dump_viz(tracker, fid, gray, viz_dir)
         cur = nxt
     tracker.flush()
     if dev.type == "cuda":
@@ -255,7 +300,7 @@ def run_points_only(args, cam: Camera, sensor: str, ds, gt=None, metric: bool = 
     tracker = make_tracker(args, cam, cfg, sample_grays=(it.gray for it in ds.frames()))
     prof = Profiler()
     ds.decode_ms.clear()  # the vocabulary's sampling pass is not the replay's
-    times = run_loop(tracker, dataset_items(ds.frames(**frames_kw), sensor), prof)
+    times = run_loop(tracker, dataset_items(ds.frames(**frames_kw), sensor), prof, **viz_kw(args))
     report = finish(tracker, times, gt=gt, out_dir=args.out, metric=metric,
                     save_kitti_traj=save_kitti_traj or args.save_kitti, checkpoint=args.checkpoint,
                     decode_ms=ds.decode_ms)

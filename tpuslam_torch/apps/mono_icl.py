@@ -70,7 +70,8 @@ def main(argv=None):
         return pdet, cdet
 
     ds.decode_ms.clear()  # the vocabulary's sampling pass is not the replay's
-    times = common.run_loop(tracker, common.dataset_items(ds.frames(), "mono"), prof, per_frame=per_frame)
+    times = common.run_loop(tracker, common.dataset_items(ds.frames(), "mono"), prof, per_frame=per_frame,
+                             **common.viz_kw(args))
     report = common.finish(tracker, times, gt=gt, out_dir=args.out, save_kitti_traj=args.save_kitti,
                            checkpoint=args.checkpoint, decode_ms=ds.decode_ms)
     print(json.dumps(report))

@@ -64,7 +64,7 @@ def main(argv=None):
 
     ds.decode_ms.clear()
     times = common.run_loop(tracker, common.dataset_items(ds.frames(with_depth=True), "rgbd"), prof,
-                         per_frame=per_frame)
+                            per_frame=per_frame, **common.viz_kw(args))
     report = common.finish(tracker, times, gt=gt, out_dir=args.out, metric=True, save_kitti_traj=args.save_kitti,
                            checkpoint=args.checkpoint, decode_ms=ds.decode_ms)
     print(json.dumps(report))

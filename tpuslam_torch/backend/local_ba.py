@@ -2,7 +2,9 @@
 back (port of the local paths of ``tpuslam/backend/local_ba.py``: points
 only, mono or with the stereo bundle of the depth sensors, and the
 heterogeneous graph with planes and cuboids), and the global BA that
-follows a loop closure (``run_global_ba``).
+follows a loop closure (``run_global_ba``).  Both take the factor-sharded
+solve of ``dist/ba.py`` when :func:`use_distributed_ba` says so, as the
+reference dispatches (local_ba.py:517-545, 595-625).
 
 The window follows Optimizer::LocalBundleAdjustment and
 LocalBACameraPlaneCuboids (Optimizer.cc:461-560, 1994-2140): optimized
@@ -16,6 +18,7 @@ point order and owned points as the reference.
 from __future__ import annotations
 
 import logging
+import os
 from typing import NamedTuple
 
 import torch
@@ -249,6 +252,17 @@ def unpack_local_ba(m: ms.MapState, pack: LocalBAPack, state_opt: lm.BAState, da
     return m
 
 
+def use_distributed_ba(cfg) -> bool:
+    """The reference's dispatch to its distributed solvers: the
+    ``distributed_ba`` flag is set (the default), ``TPUSLAM_FORCE_LOCAL_BA``
+    is unset, and more than one rank shares the factors (``torch.distributed``
+    initialized with a world above 1)."""
+    from ..dist import mesh
+
+    return (cfg.flags.distributed_ba and not os.environ.get("TPUSLAM_FORCE_LOCAL_BA")
+            and mesh.world_size() > 1)
+
+
 def run_local_ba(m: ms.MapState, center_kf: int, cam, cfg, stats: dict = None):
     """pack -> two-phase solve -> unpack, without a host wait.
 
@@ -256,7 +270,9 @@ def run_local_ba(m: ms.MapState, center_kf: int, cam, cfg, stats: dict = None):
     and is not written back (local_ba.py:629-640 of the reference).  The
     factor types follow the ``optimize_with_*`` flags (Parameters.cc:43-48):
     the heterogeneous graph is built when at least one is on.  The depth
-    sensors add the stereo bundle (local_ba.py:513-639).
+    sensors add the stereo bundle (local_ba.py:513-639).  Under
+    :func:`use_distributed_ba` every rank must call it with the same map:
+    the factors split over the ranks (``dist/ba.distributed_local_ba``).
     ``stats``: a dict that gains, per factor bundle, the number of valid
     factors packed (device scalars, summed over calls; nothing is read).
     Returns (map, phase-2 chi2s)."""
@@ -277,10 +293,15 @@ def run_local_ba(m: ms.MapState, center_kf: int, cam, cfg, stats: dict = None):
             if b is not None:
                 stats[key] = stats.get(key, 0) + b.valid.sum()
     w = lm.BAWeights.from_config(cfg.ba)
-    state_opt, data_out, chi2s = lm.local_ba(
-        pack.state, pack.data, w,
-        phase1_iters=cfg.ba.local_ba_iters_phase1, phase2_iters=cfg.ba.local_ba_iters_phase2,
-    )
+    iters = dict(phase1_iters=cfg.ba.local_ba_iters_phase1, phase2_iters=cfg.ba.local_ba_iters_phase2)
+    if use_distributed_ba(cfg):
+        from ..dist import ba as dba, mesh
+
+        data_p = dba.pad_factors_for_mesh(pack.data, mesh.world_size())
+        state_opt, data_out_p, chi2s = dba.distributed_local_ba(pack.state, data_p, w, **iters)
+        data_out = dba.unpad_factors(data_out_p, pack.data)
+    else:
+        state_opt, data_out, chi2s = lm.local_ba(pack.state, pack.data, w, **iters)
     accept = torch.isfinite(chi2s[-1]) & (chi2s[-1] <= 1.5 * chi2s[0] + 1e-3)
     return unpack_local_ba(m, pack, state_opt, data_out, stereo_shared=depth, accept=accept), chi2s
 
@@ -363,11 +384,11 @@ def run_global_ba(m: ms.MapState, cam, cfg, n_iters: int = 10, n_kf: int = 0, sh
 
     ``should_abort``: a zero-argument callable polled between chunks of
     ``chunk`` LM iterations (the reference's ``mbStopGBA``); on an abort the
-    partial state is written back.  The reference's distributed solvers
-    are not ported; this is its local path (as ``TPUSLAM_FORCE_LOCAL_BA``
-    selects).  ``fetch``: reads device tensors to numpy in one copy (the
-    Tracker's counted reads).  Returns (map, chi2 of each iteration's trial
-    step)."""
+    partial state is written back.  Under :func:`use_distributed_ba` the
+    factors split over the ranks (``dist/ba.distributed_lm_iterations``),
+    unchunked, as the reference chooses that path first.  ``fetch``: reads
+    device tensors to numpy in one copy (the Tracker's counted reads).
+    Returns (map, chi2 of each iteration's trial step)."""
     fetch = fetch or ms.read_numpy
     caps = cfg.caps
     kf_valid_np, n_valid = fetch((m.kf_valid, m.pt_valid.sum()))
@@ -384,7 +405,12 @@ def run_global_ba(m: ms.MapState, cam, cfg, n_iters: int = 10, n_kf: int = 0, sh
     depth = cfg.sensor in ("rgbd", "stereo")
     pack = pack_global_ba(m, cam, n_kfs=n_kfs, n_pts=n_pts, use_stereo=depth)
     w = lm.BAWeights.from_config(cfg.ba)
-    if should_abort is not None:
+    if use_distributed_ba(cfg):
+        from ..dist import ba as dba, mesh
+
+        data_p = dba.pad_factors_for_mesh(pack.data, mesh.world_size())
+        state_opt, chi2s = dba.distributed_lm_iterations(pack.state, data_p, w, n_iters)
+    elif should_abort is not None:
         state_opt, chi2s, done = pack.state, [], 0
         while done < n_iters:
             step = min(chunk, n_iters - done)

@@ -471,11 +471,7 @@ class Tracker:
         self.cam = cam
         self.cfg = cfg
         self.K = camera_matrix(cam)
-        o = cfg.orb
-        self.extractor = OrbExtractor(
-            cam.height, cam.width, self.device, n_features=o.n_features, n_levels=o.n_levels,
-            scale_factor=o.scale_factor, ini_th=o.ini_th_fast, min_th=o.min_th_fast,
-        )
+        self.extractor = self._extractor(cam.height, cam.width)
         self.map = ms.empty_map(cfg.caps, self.device)
         self.loop_closer = None
         if cfg.flags.enable_loop_closing:
@@ -598,6 +594,19 @@ class Tracker:
                 "map's per-keyframe arrays are padded to max_keypoints"
             )
 
+    def _extractor(self, height: int, width: int) -> OrbExtractor:
+        o = self.cfg.orb
+        return OrbExtractor(height, width, self.device, n_features=o.n_features, n_levels=o.n_levels,
+                            scale_factor=o.scale_factor, ini_th=o.ini_th_fast, min_th=o.min_th_fast)
+
+    def _fit_extractor(self, img) -> None:
+        """Rebuild the extractor for an image of another size than the
+        camera's (the stream node's camera comes from flags): the
+        reference's jitted extractor follows the image's shape."""
+        h, w = img.shape[-2:]
+        if (h, w) != (self.extractor.height, self.extractor.width):
+            self.extractor = self._extractor(h, w)
+
     def _to_device(self, img):
         t = img if isinstance(img, torch.Tensor) else torch.from_numpy(np.asarray(img))
         return t.to(self.device, non_blocking=True)
@@ -611,6 +620,7 @@ class Tracker:
         frame's, else this frame's."""
         self._check_feature_caps()
         g = self._to_device(gray)
+        self._fit_extractor(g)
         d = None if depth is None else self._to_device(depth).to(torch.float32)
         if self.state == self.OK:
             cfg = self.cfg
@@ -658,6 +668,7 @@ class Tracker:
         self._check_feature_caps()
         gl = self._to_device(gray_l).to(torch.float32)
         gr = self._to_device(gray_r).to(torch.float32)
+        self._fit_extractor(gl)
         fl, fr = self.extractor(gl), self.extractor(gr)
         ur, depth, ok = compute_stereo_matches(gl, gr, fl.uv, fl.octave, fl.desc, fl.valid, fr.uv, fr.octave,
                                                fr.desc, fr.valid, bf=self.cam.bf, fx=self.cam.fx)

@@ -1,8 +1,9 @@
 """Levenberg-Marquardt: motion-only pose optimization and the bundle
 adjustment of the heterogeneous graph (port of ``tpuslam/graph/lm.py``:
 ``optimize_pose``, and ``BAState`` through ``local_ba`` for the mono,
-stereo, plane and cuboid factors; the distributed solvers wait for their
-slice).
+stereo, plane and cuboid factors).  ``lm_iterations`` is also the body of
+the factor-sharded solve across ranks (``dist/ba.py``), which passes it
+the all-reduce of the normal equations and chi2.
 
 Loops that the reference writes as ``lax.scan`` or ``lax.while_loop`` are
 fixed Python loops here whose accept/reject steps are ``torch.where``, so a
@@ -689,9 +690,15 @@ def _free_mask(state: BAState, data: BAData):
     return torch.cat([pose_free, cub_free, plane_free])
 
 
-def lm_iterations(state: BAState, data: BAData, w: BAWeights, n_iters: int, lam0: float = 1e-4):
+def lm_iterations(state: BAState, data: BAData, w: BAWeights, n_iters: int, lam0: float = 1e-4, reduce=None):
     """``n_iters`` LM iterations with accept/reject and adaptive damping.
     Returns (state, chi2 of each iteration's trial step (n_iters,)).
+
+    ``reduce``: given a list of tensors, returns their sums over the ranks
+    that hold the other factors (``dist/ba.py``, where ``data`` is one
+    rank's shard of the factor bundles and every gauge field is whole).  It
+    is called once per iteration on the normal equations and the current
+    chi2, and once on the trial's chi2.
 
     A trial with a non-finite variable (pose, point, plane or cuboid) is
     rejected.  The reference accepts one whose chi2 fell, and its chi2 masks
@@ -705,11 +712,12 @@ def lm_iterations(state: BAState, data: BAData, w: BAWeights, n_iters: int, lam0
     point_active = data.point_active.to(torch.float32)
     lam = torch.full((), lam0, device=free_c.device)
     chi2s = []
+    reduce = reduce or (lambda xs: xs)
     for _ in range(n_iters):
-        H_cc, H_cl, H_ll, b_c, b_l, chi2_cur = build_system(state, data, w)
+        H_cc, H_cl, H_ll, b_c, b_l, chi2_cur = reduce(list(build_system(state, data, w)))
         delta_c, delta_l = schur_solve(H_cc, H_cl, H_ll, b_c, b_l, lam, free_c, point_active)
         trial = retract_state(state, data, delta_c, delta_l)
-        chi2_new = total_chi2(trial, data, w)
+        chi2_new = reduce([total_chi2(trial, data, w)])[0]
         finite = torch.stack([torch.isfinite(x).all() for x in trial]).all()
         ok = (chi2_new < chi2_cur) & torch.isfinite(chi2_new) & finite
         state = BAState(*(torch.where(ok, b, a) for a, b in zip(state, trial)))
