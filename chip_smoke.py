@@ -170,16 +170,28 @@ In order, it
      phase 14's folder on its stdin: every output line parses, the frame
      ids come back in order, and the run is gated as phase 7's against
      ``JAX_STREAM_30``; K1 and K2 at its shapes (its checkpoint);
- 20. prints each phase's seconds, the slice's frames/s, the device ms of
+ 20. the kf-major BA assembly (``lm.build_system(reproj_n=N)``), with
+     deterministic algorithms off: bench.py's local-BA window
+     (``workload.build_ba_window``) solved twice on the card (30 LM
+     iterations, equal bit for bit, chi2 falls), ms per solve of the
+     kf-major and the generic path in turns, the same window without its
+     vertical plane lanes on the card against the CPU (BA20_* tolerances),
+     ``index_put(accumulate=True)`` and ``index_add`` each run twice on one
+     input (reported), ``run_local_ba`` on phase 17's revisit window and
+     ``run_global_ba`` on phase 11's welded map, each twice (equal bit for
+     bit), and phase 7's replay once more: whether its raw trajectory equals
+     phase 7's, or the first frame where they part (reported); a
+     ``ba_order`` line;
+ 21. prints each phase's seconds, the slice's frames/s, the device ms of
      plane segmentation and of stereo matching per frame (CUDA events
      around one call), each kernel's device time (launches queued behind a
      spin, ``kernels/timing.py``) beside its bound and its plain version's
      host-paced time, then one JSON line of kernels (launches summed over
-     the fourteen paths that run on the card and launch them: the slice,
+     the fifteen paths that run on the card and launch them: the slice,
      the card's small replay, the golden, flagship, RGB-D and stereo
      replays, relocalization, the loops-on replay, the four CLI runs of
-     phases 14-16, both pipeline ranks and the stream node), the card line,
-     and the result.
+     phases 14-16, both pipeline ranks, the stream node and phase 20's
+     replay), the card line, and the result.
 
 It imports nothing of JAX.  Any failed phase raises, and the script exits
 non-zero without printing the result line; a failed rank fails its phase.
@@ -288,6 +300,13 @@ DIST_SIM3_TOL = 1e-4
 DIST_LM_ITERS = 10
 BA_CENTER = 100  # the local BA's centre keyframe on ``ba_map`` (tests/test_dist.py:95)
 REVISIT_CENTER = 11  # the revisit's newest keyframe
+# phase 20: the kf-major solve of bench.py's window (its vertical plane
+# lanes invalid) on the card against the CPU: final chi2 relative, poses and
+# points absolute (the CPU's two assembly paths agree within 3.6e-5, 5.4e-6
+# and 1.9e-4 on this window)
+BA20_CHI2_RTOL = 1e-4
+BA20_POSE_TOL = 1e-4
+BA20_POINT_TOL = 1e-3
 DEPTH_CLI_FRAMES = 30
 FLAGSHIP_FRAMES = 200
 RGBD_FRAMES = 100
@@ -528,6 +547,16 @@ def replay_gates(name, rep, ref, n_frames, depth=False):
           f"(JAX package {ref['ate_raw_m']:.4f} m)")
     n, n_ref = rep["keyframes_created"], ref["keyframes_created"]
     check(0.7 * n_ref <= n <= 1.3 * n_ref, f"{name}: {n} keyframes created, JAX package {n_ref}")
+
+
+def event_call(fn):
+    """(``fn()``, its device ms between CUDA events recorded around it)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def event_ms(fn, reps: int = 10) -> float:
@@ -1600,6 +1629,155 @@ def stream_phase(work: str, folder: str, dev, gt):
     return rep, launches, disk_kernel_cases(dev, gray0, m, extra["ref_kf"])
 
 
+def same_state(a, b) -> bool:
+    """Two BAStates equal bit for bit."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def same_map(a, b) -> bool:
+    """Two MapStates equal bit for bit, field by field."""
+    from tpuslam_torch.map import mapstate as ms
+
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ms.FIELDS)
+
+
+def first_split(traj_a, traj_b):
+    """The first frame id where two replays' raw trajectories differ (a frame
+    tracked in one only, or a pose not equal bit for bit), or None."""
+    for (fa, pa), (fb, pb) in zip(traj_a, traj_b):
+        if fa != fb or not np.array_equal(pa, pb):
+            return min(fa, fb)
+    if len(traj_a) != len(traj_b):
+        return (traj_a if len(traj_a) > len(traj_b) else traj_b)[min(len(traj_a), len(traj_b))][0]
+    return None
+
+
+def ba_order_phase(dev, revisit, golden, gold_rendered, traj_7, read_launches, reset_launches):
+    """Phase 20: the kf-major BA assembly (``lm.build_system(reproj_n=N)``)
+    on the card, with deterministic algorithms off.  On bench.py's local-BA
+    window (``workload.build_ba_window``: 16 + 16 keyframes of 1024 lanes,
+    4096 points, 8 planes, 8 cuboids, every bundle bench.py packs), 30 LM
+    iterations twice: equal bit for bit, and chi2 falls; ms per solve of
+    the kf-major and the generic (``reproj_n=0``) path, in turns.  The same
+    window with its vertical plane lanes invalid (bench.py's measure a
+    plane as perpendicular to itself, a factor whose Jacobian is about one
+    over rounding: float32 solves with them are chaotic on any device) on
+    the card and on the CPU: final chi2 within BA20_CHI2_RTOL, poses
+    BA20_POSE_TOL, points BA20_POINT_TOL.  ``run_local_ba`` on phase 17's
+    revisit window and ``run_global_ba`` on phase 11's welded map, each
+    twice: equal bit for bit.  Then phase 7's replay again: whether its raw
+    trajectory equals phase 7's bit for bit, or the first frame where they
+    part (reported).  Returns (the ``ba_order`` line, the replay's kernel
+    launches)."""
+    from tpuslam_torch import workload
+    from tpuslam_torch.backend import local_ba
+    from tpuslam_torch.graph import lm
+
+    deterministic(False)
+    check(not torch.are_deterministic_algorithms_enabled(), "BA order: deterministic algorithms off")
+    n, iters = workload.BA_N, workload.BA_ITERS
+    st, d = workload.build_ba_window(0, dev)
+    w = lm.BAWeights()
+    lm.lm_iterations(st, d, w, 1, reproj_n=n)  # warm-up
+    solves = {"kf_major": [], "generic": []}
+    for path in ("kf_major", "generic", "generic", "kf_major"):  # in turns
+        solves[path].append(event_call(lambda: lm.lm_iterations(st, d, w, iters,
+                                                                reproj_n=n if path == "kf_major" else 0)))
+    (s1, c1), (s2, c2) = (x for x, _ in solves["kf_major"])
+    (g1, gc1), (g2, gc2) = (x for x, _ in solves["generic"])
+    kf_ms, gen_ms = ([t for _, t in solves[k]] for k in ("kf_major", "generic"))
+    chi2_0, chi2_1 = float(lm.total_chi2(st, d, w)), float(lm.total_chi2(s1, d, w))
+    check(same_state(s1, s2) and torch.equal(c1, c2),
+          f"BA order: two kf-major solves of bench.py's window ({iters} LM iterations, planes and cuboids) equal "
+          f"bit for bit")
+    check(chi2_1 < chi2_0, f"BA order: the bench window's chi2 falls, {chi2_0:.1f} -> {chi2_1:.1f}")
+    generic_equal = same_state(g1, g2) and torch.equal(gc1, gc2)
+    print(f"BA order: bench window, ms per {iters}-iteration solve: kf-major {kf_ms}, generic {gen_ms}; generic "
+          f"solves equal bit for bit: {generic_equal}", flush=True)
+    # where an LM iteration's time goes: device ms of its parts (CUDA events, median of 5)
+    reproj_only = d._replace(**{k: None for k in lm.BUNDLES})
+    H = lm.build_system(st, d, w, reproj_n=n)
+    free_c, pa = lm._free_mask(st, d), d.point_active.to(torch.float32)
+    lam = torch.full((), 1e-4, device=dev)
+    parts = {
+        "build_system_kf_major": lambda: lm.build_system(st, d, w, reproj_n=n),
+        "build_system_generic": lambda: lm.build_system(st, d, w),
+        "reprojection_kf_major": lambda: lm.build_system(st, reproj_only, w, reproj_n=n),
+        "reprojection_generic": lambda: lm.build_system(st, reproj_only, w),
+        "schur_solve": lambda: lm.schur_solve(*H[:5], lam, free_c, pa),
+        "total_chi2": lambda: lm.total_chi2(st, d, w),
+    }
+    breakdown = {k: event_ms(f, reps=5) for k, f in parts.items()}
+    print(f"BA order: device ms per call of an LM iteration's parts {json.dumps(breakdown)}", flush=True)
+
+    def solve(state_np, data_np, where):
+        st_x, d_x = lm.ba_state_from_numpy(state_np, where), lm.ba_data_from_numpy(data_np, where)
+        s_x, _ = lm.lm_iterations(st_x, d_x, w, iters, reproj_n=n)
+        return s_x, float(lm.total_chi2(s_x, d_x, w))
+
+    # card against CPU on the well-posed window
+    state_np, data_np = workload.ba_window_arrays(0)
+    po = data_np["plane_obs"]
+    well_posed = {**data_np, "plane_obs": {**po, "valid": po["valid"] & (po["kind"] != 1)}}
+    (s_g, chi2_g), (s_c, chi2_c) = (solve(state_np, well_posed, where) for where in (dev, "cpu"))
+    dchi2 = abs(chi2_g - chi2_c) / abs(chi2_c)
+    dpose = float((s_g.poses.cpu() - s_c.poses).abs().max())
+    dpt = float((s_g.points.cpu() - s_c.points).abs().max())
+    check(dchi2 <= BA20_CHI2_RTOL and dpose <= BA20_POSE_TOL and dpt <= BA20_POINT_TOL,
+          f"BA order: the window without its vertical plane lanes, card vs CPU: final chi2 {chi2_g:.3f} vs "
+          f"{chi2_c:.3f} (rel {dchi2:.2e} <= {BA20_CHI2_RTOL}), poses {dpose:.2e} <= {BA20_POSE_TOL}, points "
+          f"{dpt:.2e} <= {BA20_POINT_TOL}")
+    s_b = solve(state_np, data_np, "cpu")[0]
+    bench_card_vs_cpu = [float((s1.poses.cpu() - s_b.poses).abs().max()),
+                         float((s1.points.cpu() - s_b.points).abs().max())]
+    print(f"BA order: bench.py's window as it is (vertical lanes on), card vs CPU: poses {bench_card_vs_cpu[0]:.2e}, "
+          f"points {bench_card_vs_cpu[1]:.2e} (chaotic in float32; reported)", flush=True)
+
+    # index_put(accumulate=True) and index_add on the card, 200k rows onto 4096 destinations, twice each
+    g = torch.Generator(device="cpu").manual_seed(0)
+    idx = torch.randint(0, 4096, (200_000,), generator=g).to(dev)
+    val = torch.randn(200_000, 12, generator=g).to(dev)
+    put = [torch.zeros(4096, 12, device=dev).index_put_((idx,), val, accumulate=True) for _ in range(2)]
+    add = [torch.zeros(4096, 12, device=dev).index_add_(0, idx, val) for _ in range(2)]
+    probe = {"index_put_accumulate_equal": bool(torch.equal(*put)), "index_add_equal": bool(torch.equal(*add))}
+    print(f"BA order: 200000 rows summed onto 4096, twice: {probe}", flush=True)
+
+    # points only: the revisit window through run_local_ba, and the global BA on the welded map
+    m, cam, cfg = revisit["map"], revisit["cam"], revisit["cfg"]
+    (m1, x1), (m2, x2) = (local_ba.run_local_ba(m, REVISIT_CENTER, cam, cfg) for _ in range(2))
+    check(same_map(m1, m2) and torch.equal(x1, x2),
+          f"BA order: two run_local_ba solves of the revisit window (points only) equal bit for bit, chi2 "
+          f"{float(x1[0]):.3f} -> {float(x1[-1]):.3f}")
+    (m1, x1), (m2, x2) = (local_ba.run_global_ba(m, cam, cfg, n_kf=12) for _ in range(2))
+    check(same_map(m1, m2) and torch.equal(x1, x2),
+          f"BA order: two run_global_ba solves of the welded map equal bit for bit, chi2 "
+          f"{float(x1[0]):.3f} -> {float(x1[-1]):.3f}")
+
+    # phase 7's replay again
+    reset_launches()
+    rep, tr = golden.run_golden(GOLDEN_FRAMES, dev, rendered=gold_rendered)
+    launches = read_launches()
+    check(launches["fast_nms"] == GOLDEN_FRAMES,
+          f"fast_nms launched {launches['fast_nms']} times in phase 7's {GOLDEN_FRAMES} frames again")
+    split = first_split(traj_7, tr.trajectory)
+    print(f"BA order: phase 7's replay again: {rep['tracked']} tracked, raw ATE {rep['ate_rmse_raw_m']:.5f} m; "
+          + ("raw trajectory equal to phase 7's bit for bit" if split is None else
+             f"raw trajectories part at frame {split}"), flush=True)
+    line = {"window": {"keyframes": int(st.poses.shape[0]), "lanes_per_keyframe": n,
+                       "points": int(st.points.shape[0]), "mono_factors": int(d.mono.valid.sum())},
+            "lm_iters": iters, "kf_major_ms_per_solve": kf_ms, "generic_ms_per_solve": gen_ms,
+            "ms_per_call": breakdown,
+            "kf_major_ms_per_iter": float(np.median(kf_ms)) / iters,
+            "generic_ms_per_iter": float(np.median(gen_ms)) / iters, "chi2": [chi2_0, chi2_1],
+            "generic_equal_bit_for_bit": generic_equal, "card_vs_cpu_chi2_rel": dchi2,
+            "card_vs_cpu_pose_max_diff": dpose, "card_vs_cpu_point_max_diff": dpt,
+            "bench_window_card_vs_cpu": bench_card_vs_cpu, **probe,
+            "replay_repeat_split_frame": split, "replay_repeat_tracked": rep["tracked"],
+            "replay_repeat_ate_raw_m": rep["ate_rmse_raw_m"]}
+    print("ba_order " + json.dumps(line), flush=True)
+    return line, launches
+
+
 def rank_main(argv) -> int:
     """Rank mode, started by :func:`run_ranks`: join the gloo group on
     ``cuda:0`` and run one rank of phase 17 (``--phase ba``) or 18
@@ -1917,9 +2095,16 @@ def main() -> int:
         k1_err = max(k1_err, hold_k1({"stream_decoded_frame0": k1_st}, cuda_fast, orb))
         k2_err = max(k2_err, hold_k2({"stream_frame0_vs_ref_kf": k2_st}, cuda_match))
         phase_s["stream"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+    # --- 20. the kf-major BA assembly: fixed order, card against CPU, times ----------
+    ba_order, launches_repeat = ba_order_phase(dev, revisit, golden, gold_rendered, tr_gold.trajectory,
+                                               read_launches, reset_launches)
+    print(f"launches: phase 7's replay again {launches_repeat}", flush=True)
+    phase_s["ba_order"] = time.perf_counter() - t_phase
     print("phase seconds " + json.dumps(phase_s), flush=True)
 
-    # --- 20. report -------------------------------------------------------------
+    # --- 21. report -------------------------------------------------------------
     print(json.dumps({
         "slice_frames_per_s": fps, "slice_seconds": dt, "frames": n_frames,
         "median_n_final": float(np.median(n_final)), "final_x_m": x_last, "expected_x_m": x_expect,
@@ -1938,6 +2123,7 @@ def main() -> int:
         "rgbd_cli_frames_per_s": depth_lines["rgbd_cli"]["frames_per_s"],
         "stereo_cli_frames_per_s": depth_lines["stereo_cli"]["frames_per_s"],
         "dist_ba": dist_ba, "pipeline_frames_per_s": pipe["frames_per_s"], "stream_frames_per_s": stream["frames_per_s"],
+        "ba_order": ba_order,
         **loop, "phase_s": phase_s, "total_s": sum(phase_s.values()),
     }))
     kernels = [
@@ -1945,7 +2131,7 @@ def main() -> int:
          "launches": sum(n[name] for n in (launches, launches_small, launches_golden, launches_flag,
                                            launches_rgbd, launches_ster, launches_reloc, launches_loops,
                                            launches_cli, launches_loc, *launches_depth.values(), launches_pipe,
-                                           launches_stream)),
+                                           launches_stream, launches_repeat)),
          "max_abs_err": err, **k}
         for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
     ]

@@ -275,6 +275,10 @@ def run_local_ba(m: ms.MapState, center_kf: int, cam, cfg, stats: dict = None):
     the factors split over the ranks (``dist/ba.distributed_local_ba``).
     ``stats``: a dict that gains, per factor bundle, the number of valid
     factors packed (device scalars, summed over calls; nothing is read).
+    The single-device solve passes ``reproj_n=kf_pt.shape[1]``: the packed
+    lanes are kf-major, so ``lm.build_system`` sums them in a fixed order
+    (local_ba.py:627 of the reference); the distributed solve keeps the
+    generic assembly, as the reference's does.
     Returns (map, phase-2 chi2s)."""
     caps = cfg.caps
     fl = cfg.flags
@@ -301,7 +305,7 @@ def run_local_ba(m: ms.MapState, center_kf: int, cam, cfg, stats: dict = None):
         state_opt, data_out_p, chi2s = dba.distributed_local_ba(pack.state, data_p, w, **iters)
         data_out = dba.unpad_factors(data_out_p, pack.data)
     else:
-        state_opt, data_out, chi2s = lm.local_ba(pack.state, pack.data, w, **iters)
+        state_opt, data_out, chi2s = lm.local_ba(pack.state, pack.data, w, **iters, reproj_n=m.kf_pt.shape[1])
     accept = torch.isfinite(chi2s[-1]) & (chi2s[-1] <= 1.5 * chi2s[0] + 1e-3)
     return unpack_local_ba(m, pack, state_opt, data_out, stereo_shared=depth, accept=accept), chi2s
 
@@ -388,6 +392,8 @@ def run_global_ba(m: ms.MapState, cam, cfg, n_iters: int = 10, n_kf: int = 0, sh
     factors split over the ranks (``dist/ba.distributed_lm_iterations``),
     unchunked, as the reference chooses that path first.  ``fetch``: reads
     device tensors to numpy in one copy (the Tracker's counted reads).
+    The whole and the chunked solve take the kf-major assembly
+    (``reproj_n=kf_pt.shape[1]``, local_ba.py:542 and :550 of the reference).
     Returns (map, chi2 of each iteration's trial step)."""
     fetch = fetch or ms.read_numpy
     caps = cfg.caps
@@ -414,14 +420,14 @@ def run_global_ba(m: ms.MapState, cam, cfg, n_iters: int = 10, n_kf: int = 0, sh
         state_opt, chi2s, done = pack.state, [], 0
         while done < n_iters:
             step = min(chunk, n_iters - done)
-            state_opt, c = lm.lm_iterations(state_opt, pack.data, w, step)
+            state_opt, c = lm.lm_iterations(state_opt, pack.data, w, step, reproj_n=m.kf_pt.shape[1])
             chi2s.append(c)
             done += step
             if done < n_iters and should_abort():
                 break
         chi2s = torch.cat(chi2s)
     else:
-        state_opt, chi2s = lm.lm_iterations(pack.state, pack.data, w, n_iters)
+        state_opt, chi2s = lm.lm_iterations(pack.state, pack.data, w, n_iters, reproj_n=m.kf_pt.shape[1])
     m = unpack_local_ba(m, pack, state_opt, pack.data, stereo_shared=depth)
     P = m.pt_pos.shape[0]
     in_opt = torch.zeros(P + 1, dtype=torch.bool, device=m.pt_pos.device).index_fill(

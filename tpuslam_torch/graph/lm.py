@@ -378,65 +378,181 @@ def _rho_sum(chi2, delta2, valid):
     return torch.sum(torch.where(valid & torch.isfinite(rho), rho, 0.0))
 
 
-def _reproj_blocks(r, Jp, Jx, inv_sigma2, valid, delta2):
-    """One reprojection bundle's per-factor normal-equation blocks (Hpp,
-    bp, Hxx, bx, Hpx) and its robust chi2 (Huber-weighted, as g2o)."""
+class _ReprojLanes(NamedTuple):
+    """One reprojection bundle, linearized: residuals and Jacobians with the
+    invalid lanes zeroed, the per-lane weight inv_sigma2 x Huber weight (0
+    on an invalid lane) and the bundle's robust chi2."""
+
+    kf: torch.Tensor  # (F,)
+    pt: torch.Tensor  # (F,)
+    r: torch.Tensor  # (F, R)
+    Jp: torch.Tensor  # (F, R, 6)
+    Jx: torch.Tensor  # (F, R, 3)
+    wgt: torch.Tensor  # (F,)
+    chi2: torch.Tensor  # ()
+
+
+def _weighted(kf, pt, r, Jp, Jx, inv_sigma2, valid, delta2) -> _ReprojLanes:
     r, Jp, Jx = _mask_lin(valid, r, Jp, Jx)
     chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
     wf = fac.huber_weight(chi2, delta2) * valid
-    wgt = (inv_sigma2 * wf)[:, None, None]
-    JpW, JxW = Jp * wgt, Jx * wgt
-    blocks = (torch.einsum("fri,frj->fij", JpW, Jp), -torch.einsum("fri,fr->fi", JpW, r),
-              torch.einsum("fri,frj->fij", JxW, Jx), -torch.einsum("fri,fr->fi", JxW, r),
-              torch.einsum("fri,frj->fij", JpW, Jx))
-    return blocks, _rho_sum(chi2, delta2, valid)
+    return _ReprojLanes(kf, pt, r, Jp, Jx, inv_sigma2 * wf, _rho_sum(chi2, delta2, valid))
 
 
 def _reproj_lanes(state: BAState, data: BAData, w: BAWeights):
-    """[(kf, pt, blocks, robust chi2)] of the mono bundle and, when present,
-    the stereo one (lm.py:446-515 of the reference)."""
+    """[(name, lanes)] of the mono bundle and, when present, the stereo one
+    (lm.py:446-515 of the reference)."""
     m = data.mono
     T, X = state.poses[m.kf], state.points[m.pt]
     r = fac.mono_residual(T, X, m.uv, data.fx, data.fy, data.cx, data.cy)
-    out = [(m.kf, m.pt, *_reproj_blocks(r, *fac.mono_jacobians(T, X, data.fx, data.fy), m.inv_sigma2, m.valid,
-                                        w.chi2_mono))]
+    out = [("mono", _weighted(m.kf, m.pt, r, *fac.mono_jacobians(T, X, data.fx, data.fy), m.inv_sigma2, m.valid,
+                              w.chi2_mono))]
     s = data.stereo
     if s is not None:
         T, X = state.poses[s.kf], state.points[s.pt]
         r = fac.stereo_residual(T, X, s.uvr, data.fx, data.fy, data.cx, data.cy, data.bf)
         Jp, Jx = fac.stereo_jacobians(T, X, data.fx, data.fy, data.bf)
-        out.append((s.kf, s.pt, *_reproj_blocks(r, Jp, Jx, s.inv_sigma2, s.valid, w.chi2_stereo)))
+        out.append(("stereo", _weighted(s.kf, s.pt, r, Jp, Jx, s.inv_sigma2, s.valid, w.chi2_stereo)))
     return out
 
 
-def build_system(state: BAState, data: BAData, w: BAWeights):
-    """Normal equations of every present bundle and their robust total chi2:
-    (H_cc (D, D), H_cl (D, P, 3), H_ll (P, 3, 3), b_c (D,), b_l (P, 3), chi2).
-
-    The reference assembles kf-major lanes with one one-hot matmul per
-    keyframe (a TPU idiom that avoids a scatter); here each lane's 6x6, 3x3,
-    6x3, 6 and 3 blocks are summed with ``index_add``, the mono and stereo
-    lanes in one pass.  Float atomics on the card make the sums
-    reproducible to rounding only."""
-    K, C, Q, D = _layout(state)
-    P = state.points.shape[0]
-    dev = state.points.device
-    lanes = _reproj_lanes(state, data, w)
-    kf = torch.cat([x[0] for x in lanes])
-    pt = torch.cat([x[1] for x in lanes])
-    Hpp, bp, Hxx, bx, Hpx = (torch.cat(b) for b in zip(*(x[2] for x in lanes)))
-    chi2_total = sum(x[3] for x in lanes)
-
+def _assemble_reproj_generic(lanes, K, P, D):
+    """Any lane layout: each lane's 6x6, 6, 3x3, 3 and 6x3 blocks summed with
+    ``index_add`` (float atomics on the card: the sums' order is not fixed).
+    Returns (pose blocks (K, 6, 6), pose b (K, 6), H_ll, b_l, H_cl (D, P, 3))."""
+    dev = lanes[0].r.device
+    kf = torch.cat([x.kf for x in lanes])
+    pt = torch.cat([x.pt for x in lanes])
+    blocks = []
+    for x in lanes:
+        wgt = x.wgt[:, None, None]
+        JpW, JxW = x.Jp * wgt, x.Jx * wgt
+        blocks.append((torch.einsum("fri,frj->fij", JpW, x.Jp), -torch.einsum("fri,fr->fi", JpW, x.r),
+                       torch.einsum("fri,frj->fij", JxW, x.Jx), -torch.einsum("fri,fr->fi", JxW, x.r),
+                       torch.einsum("fri,frj->fij", JpW, x.Jx)))
+    Hpp, bp, Hxx, bx, Hpx = (torch.cat(b) for b in zip(*blocks))
     pose_blocks = torch.zeros((K, 6, 6), device=dev).index_add(0, kf, Hpp)
-    rows = 6 * torch.arange(K, device=dev)[:, None] + torch.arange(6, device=dev)[None, :]
-    H_cc = torch.zeros((D, D), device=dev).index_put((rows[:, :, None], rows[:, None, :]), pose_blocks)
     pose_b = torch.zeros((K, 6), device=dev).index_add(0, kf, bp)
-    b_c = torch.zeros(D, device=dev).index_put((rows.reshape(-1),), pose_b.reshape(-1))
     H_ll = torch.zeros((P, 3, 3), device=dev).index_add(0, pt, Hxx)
     b_l = torch.zeros((P, 3), device=dev).index_add(0, pt, bx)
     cross = torch.zeros((K * P, 6, 3), device=dev).index_add(0, kf * P + pt, Hpx)
     H_cl = cross.reshape(K, P, 6, 3).permute(0, 2, 1, 3).reshape(6 * K, P, 3)
     H_cl = torch.cat([H_cl, torch.zeros((D - 6 * K, P, 3), device=dev)])
+    return pose_blocks, pose_b, H_ll, b_l, H_cl
+
+
+def _pose_sums(lanes, n: int, K, batched: bool):
+    """(pose blocks (K, 6, 6), pose b (K, 6)) of kf-major lanes, each
+    keyframe's ``n`` lanes summed.  ``batched`` (on the card): one batched
+    matmul per bundle over each keyframe's lanes, a fixed order with no
+    scatter.  Otherwise (on the CPU) each lane's blocks summed in lane order
+    with ``index_add``, serial there, as the generic path sums them, so that
+    on the CPU the two paths give the same normal equations bit for bit."""
+    dev = lanes[0].r.device
+    pose_blocks = torch.zeros((K, 6, 6), device=dev)
+    pose_b = torch.zeros((K, 6), device=dev)
+    if not batched:
+        kf = torch.cat([x.kf for x in lanes])
+        JpW = [x.Jp * x.wgt[:, None, None] for x in lanes]
+        Hpp = torch.cat([torch.einsum("fri,frj->fij", a, x.Jp) for a, x in zip(JpW, lanes)])
+        bp = torch.cat([-torch.einsum("fri,fr->fi", a, x.r) for a, x in zip(JpW, lanes)])
+        return pose_blocks.index_add(0, kf, Hpp), pose_b.index_add(0, kf, bp)
+    for x in lanes:
+        R = x.r.shape[1]
+        JpW = (x.Jp * x.wgt[:, None, None]).reshape(K, n, R, 6)
+        pose_blocks = pose_blocks + torch.einsum("wnri,wnrj->wij", JpW, x.Jp.reshape(K, n, R, 6))
+        pose_b = pose_b - torch.einsum("wnri,wnr->wi", JpW, x.r.reshape(K, n, R))
+    return pose_blocks, pose_b
+
+
+def _assemble_reproj_blocked(lanes, n: int, K, P, D):
+    """Kf-major lanes (``kf = repeat(arange(K), n)`` in every bundle), the
+    port of the reference's ``_assemble_reproj_blocked`` (lm.py:363-413),
+    summed in a fixed order without atomics.
+
+    - The pose blocks and b_c reduce over each keyframe's ``n`` lanes
+      (:func:`_pose_sums`): their rows are unique.
+    - H_cl: each lane writes its 6x3 cross block straight into its
+      keyframe's six rows at its point's column, and H_ll and b_l take each
+      lane's 3x3 and 3 at its point, both through :func:`_sum_at`, which
+      sums each destination's lanes one after another in lane order: in
+      H_ll keyframe 0 comes first, the mono bundle before the stereo one, as
+      in the reference's scan.  A keyframe that binds one point from two
+      keypoints puts two lanes on one H_cl entry; they are summed, as the
+      reference's one-hot sums them.
+    - A lane with no weight (invalid, or a zero Huber weight) writes to a
+      slot of its own past the end, as the reference points it at the
+      one-hot's dropped column P: so no destination gathers the window's
+      thousands of empty lanes into one serial sum.
+
+    No (K, P, .) buffer is made beside H_cl, so nothing needs chunking over
+    keyframes.  Besides H_cl (D x P x 3 floats: 10.0 MB for the local
+    window, D = 204 and P = 4096; 1.21 GB for the global BA's largest
+    bucket, 512 keyframes, D = 3084, P = 32768) the buffers are per lane: the
+    6x3 cross blocks and H_cl's spill slots, 72 bytes a lane each, and the
+    (P + F, 12) H_ll / b_l accumulator, 48 bytes a lane: 6.5 MB for the
+    32 x 1024 mono lanes of the local window, 102 MB for 512 x 1024, and
+    the sorts' int64 keys (seven a lane).  The generic path holds two more
+    H_cl-sized buffers (its (K P, 6, 3) sum and the transposed copy)."""
+    dev = lanes[0].r.device
+    pose_blocks, pose_b = _pose_sums(lanes, n, K, batched=dev.type == "cuda")
+    point_payload, cross = [], []
+    for x in lanes:
+        wgt = x.wgt[:, None, None]
+        JpW, JxW = x.Jp * wgt, x.Jx * wgt
+        point_payload.append(torch.cat([torch.einsum("fri,frj->fij", JxW, x.Jx).flatten(1),
+                                        -torch.einsum("fri,fr->fi", JxW, x.r)], dim=1))
+        cross.append(torch.einsum("fri,frj->fij", JpW, x.Jx))
+    kf = torch.cat([x.kf for x in lanes])
+    pt = torch.cat([x.pt for x in lanes])
+    live = torch.cat([x.wgt > 0 for x in lanes])
+    F = kf.shape[0]
+    lane = torch.arange(F, device=dev)
+    acc = _sum_at(torch.zeros((P + F, 12), device=dev), torch.where(live, pt, P + lane), torch.cat(point_payload))
+    H_ll = acc[:P, :9].reshape(P, 3, 3)
+    b_l = acc[:P, 9:]
+    six = torch.arange(6, device=dev)
+    dest = torch.where(live[:, None], (6 * kf[:, None] + six) * P + pt[:, None], D * P + 6 * lane[:, None] + six)
+    H_cl = _sum_at(torch.zeros((D * P + 6 * F, 3), device=dev), dest.reshape(-1), torch.cat(cross).reshape(-1, 3))
+    H_cl = H_cl[: D * P].view(D, P, 3)
+    return pose_blocks, pose_b, H_ll, b_l, H_cl
+
+
+def build_system(state: BAState, data: BAData, w: BAWeights, reproj_n: int = 0):
+    """Normal equations of every present bundle and their robust total chi2:
+    (H_cc (D, D), H_cl (D, P, 3), H_ll (P, 3, 3), b_c (D,), b_l (P, 3), chi2).
+
+    ``reproj_n > 0`` claims, as in the reference, that the mono lanes, and
+    apart from them the stereo lanes, are kf-major: ``reproj_n`` lanes per
+    keyframe in ``repeat(arange(K), reproj_n)`` order, as ``pack_local_ba``
+    and ``pack_global_ba`` lay them out.  It selects
+    :func:`_assemble_reproj_blocked`, whose sums have a fixed order on the
+    card.  A bundle with another lane count raises ``ValueError`` (a
+    coincidentally divisible layout that is not kf-major would corrupt the
+    normal equations); a one-lane bundle (the reference's ``.empty()``
+    placeholder) takes the generic path.  ``reproj_n=0`` takes the generic
+    path, :func:`_assemble_reproj_generic`, for every lane layout (the
+    factor-sharded solve of ``dist/ba.py``)."""
+    K, C, Q, D = _layout(state)
+    P = state.points.shape[0]
+    dev = state.points.device
+    lanes = _reproj_lanes(state, data, w)
+    chi2_total = sum(x.chi2 for _, x in lanes)
+    blocked, generic = [], []
+    for name, x in lanes:
+        F = x.kf.shape[0]
+        if reproj_n and F > 1:  # 1 lane == the .empty() placeholder
+            if F != reproj_n * K:
+                raise ValueError(f"reproj_n={reproj_n} claims kf-major {name} lanes but {F} != {reproj_n}*{K}")
+            blocked.append(x)
+        else:
+            generic.append(x)
+    parts = ([_assemble_reproj_blocked(blocked, reproj_n, K, P, D)] if blocked else []) + (
+        [_assemble_reproj_generic(generic, K, P, D)] if generic else [])
+    pose_blocks, pose_b, H_ll, b_l, H_cl = (sum(p) if len(p) > 1 else p[0] for p in zip(*parts))
+    rows = 6 * torch.arange(K, device=dev)[:, None] + torch.arange(6, device=dev)[None, :]
+    H_cc = torch.zeros((D, D), device=dev).index_put((rows[:, :, None], rows[:, None, :]), pose_blocks)
+    b_c = torch.zeros(D, device=dev).index_put((rows.reshape(-1),), pose_b.reshape(-1))
     if any(getattr(data, k) is not None for k in BUNDLES):
         H_cc, b_c, chi2_sem = _semantic_system(state, data, w, H_cc, b_c)
         chi2_total = chi2_total + chi2_sem
@@ -519,18 +635,31 @@ def _mask_lin(valid, r, *jacs):
             *(torch.where(valid[:, None, None], J, 0.0) for J in jacs))
 
 
+def _sum_at(target, idx, vals):
+    """``target`` with each row of ``vals`` added at its row ``idx``, the
+    rows that meet at one destination summed one after another in the
+    order of ``idx``, on either device.  On the card ``index_put(accumulate=
+    True)`` does that (it sorts the destinations with a stable radix sort,
+    then sums each run in order), where ``index_add`` adds with float
+    atomics; on the CPU ``index_add`` does it (serially), where
+    ``index_put(accumulate=True)`` adds atomically across threads."""
+    if target.is_cuda:
+        return target.index_put((idx,), vals, accumulate=True)
+    return target.index_add(0, idx, vals)
+
+
 def _add_cc(H, rows0, cols0, blocks):
     di, dj = blocks.shape[-2], blocks.shape[-1]
     dev = H.device
     rows = rows0[:, None, None] + torch.arange(di, device=dev)[None, :, None]
     cols = cols0[:, None, None] + torch.arange(dj, device=dev)[None, None, :]
-    rows, cols = torch.broadcast_tensors(rows, cols)
-    return H.index_put((rows, cols), blocks, accumulate=True)
+    flat = (rows * H.shape[1] + cols).reshape(-1)
+    return _sum_at(H.reshape(-1), flat, blocks.reshape(-1)).view(H.shape)
 
 
 def _add_b(b, rows0, vecs):
     rows = rows0[:, None] + torch.arange(vecs.shape[-1], device=b.device)[None, :]
-    return b.index_put((rows,), vecs, accumulate=True)
+    return _sum_at(b, rows.reshape(-1), vecs.reshape(-1))
 
 
 def _binary_cc(H_cc, b_c, r, J_i, J_j, wf, row_i, row_j, info):
@@ -550,8 +679,8 @@ def _binary_cc(H_cc, b_c, r, J_i, J_j, wf, row_i, row_j, info):
 
 
 def _semantic_system(state: BAState, data: BAData, w: BAWeights, H_cc, b_c):
-    """Add the plane and cuboid bundles to (H_cc, b_c), summed by
-    ``index_put(accumulate=True)``; returns (H_cc, b_c, their robust chi2).
+    """Add the plane and cuboid bundles to (H_cc, b_c), summed in a fixed
+    order (:func:`_sum_at`); returns (H_cc, b_c, their robust chi2).
     Jacobians come from :func:`factors.linearize` (forward mode), as the
     reference's come from ``jacfwd``."""
     K, C, Q, D = _layout(state)
@@ -690,9 +819,13 @@ def _free_mask(state: BAState, data: BAData):
     return torch.cat([pose_free, cub_free, plane_free])
 
 
-def lm_iterations(state: BAState, data: BAData, w: BAWeights, n_iters: int, lam0: float = 1e-4, reduce=None):
+def lm_iterations(state: BAState, data: BAData, w: BAWeights, n_iters: int, lam0: float = 1e-4,
+                  reproj_n: int = 0, reduce=None):
     """``n_iters`` LM iterations with accept/reject and adaptive damping.
     Returns (state, chi2 of each iteration's trial step (n_iters,)).
+
+    ``reproj_n``: the lanes per keyframe of kf-major mono and stereo
+    bundles, which selects the fixed-order assembly (:func:`build_system`).
 
     ``reduce``: given a list of tensors, returns their sums over the ranks
     that hold the other factors (``dist/ba.py``, where ``data`` is one
@@ -714,7 +847,7 @@ def lm_iterations(state: BAState, data: BAData, w: BAWeights, n_iters: int, lam0
     chi2s = []
     reduce = reduce or (lambda xs: xs)
     for _ in range(n_iters):
-        H_cc, H_cl, H_ll, b_c, b_l, chi2_cur = reduce(list(build_system(state, data, w)))
+        H_cc, H_cl, H_ll, b_c, b_l, chi2_cur = reduce(list(build_system(state, data, w, reproj_n)))
         delta_c, delta_l = schur_solve(H_cc, H_cl, H_ll, b_c, b_l, lam, free_c, point_active)
         trial = retract_state(state, data, delta_c, delta_l)
         chi2_new = reduce([total_chi2(trial, data, w)])[0]
@@ -755,12 +888,14 @@ def gate_observations(state: BAState, data: BAData, w: BAWeights) -> BAData:
     return data._replace(**out)
 
 
-def local_ba(state: BAState, data: BAData, w: BAWeights, phase1_iters: int = 5, phase2_iters: int = 10):
+def local_ba(state: BAState, data: BAData, w: BAWeights, phase1_iters: int = 5, phase2_iters: int = 10,
+             reproj_n: int = 0):
     """Two-phase local BA (LocalBundleAdjustment, Optimizer.cc:461-786):
-    optimize, gate outliers, optimize again, gate again.
-    Returns (state, data with the final gate, phase-2 chi2s)."""
-    state, _ = lm_iterations(state, data, w, phase1_iters)
+    optimize, gate outliers, optimize again, gate again; ``reproj_n`` as in
+    :func:`lm_iterations`.  Returns (state, data with the final gate,
+    phase-2 chi2s)."""
+    state, _ = lm_iterations(state, data, w, phase1_iters, reproj_n=reproj_n)
     data = gate_observations(state, data, w)
-    state, chi2s = lm_iterations(state, data, w, phase2_iters)
+    state, chi2s = lm_iterations(state, data, w, phase2_iters, reproj_n=reproj_n)
     data = gate_observations(state, data, w)
     return state, data, chi2s
