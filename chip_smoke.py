@@ -106,7 +106,8 @@ In order, it
      widened re-search round, with K2 launched and held to its plain
      version at these shapes;
  13. phase 7's 100 frames again with loop closing on (the default config,
-     the seeded 1024-word codebook), printed as a ``loops`` line with the
+     the seeded 1024-word codebook; the trace file and the loop log on,
+     for phase 21), printed as a ``loops`` line with the
      loop closer's ``loop_*`` ms per keyframe and the keyframes that
      reached each detector gate; phase 7's gates against
      ``JAX_GOLDEN_LOOPS_100`` and as many loops as that JAX run; on its
@@ -182,16 +183,32 @@ In order, it
      bit), and phase 7's replay once more: whether its raw trajectory equals
      phase 7's, or the first frame where they part (reported); a
      ``ba_order`` line;
- 21. prints each phase's seconds, the slice's frames/s, the device ms of
+ 21. diagnostics: phase 13's run wrote the Tracker's ``TPUSLAM_TRACE``
+     file and the loop detector's ``TPUSLAM_LOOP_DEBUG`` log; one ``fid=``
+     line per frame tracked after initialization (the frames the Tracker
+     committed), one ``KF`` line per keyframe created after it, and one
+     detector ``fid=`` / ``gate2`` / ``gate3`` line per keyframe at the
+     detector's ``covisible`` / ``words`` / ``score`` gate.  Then
+     ``utils/profiler.device_trace`` around one call each, after a
+     warm-up, of a tracked frame of the slice, an LM iteration of
+     bench.py's window (kf-major), ``run_local_ba`` on the revisit window,
+     phase 12's relocalization and phase 11's essential graph, each
+     printed with its kernel launches, CUDA API calls, device-busy share
+     and top five kernels (``trace_summary``; not gated).  Then, with
+     deterministic algorithms off, ``mono_icl --planes --objects`` twice
+     on the first 60 frames of phase 14's folder (trajectories, keyframe
+     frame ids and maps equal bit for bit) and the essential graph twice
+     (equal bit for bit); a ``diagnostics`` line;
+ 22. prints each phase's seconds, the slice's frames/s, the device ms of
      plane segmentation and of stereo matching per frame (CUDA events
      around one call), each kernel's device time (launches queued behind a
      spin, ``kernels/timing.py``) beside its bound and its plain version's
      host-paced time, then one JSON line of kernels (launches summed over
-     the fifteen paths that run on the card and launch them: the slice,
+     the sixteen paths that run on the card and launch them: the slice,
      the card's small replay, the golden, flagship, RGB-D and stereo
      replays, relocalization, the loops-on replay, the four CLI runs of
-     phases 14-16, both pipeline ranks, the stream node and phase 20's
-     replay), the card line, and the result.
+     phases 14-16, both pipeline ranks, the stream node, phase 20's
+     replay and phase 21), the card line, and the result.
 
 It imports nothing of JAX.  Any failed phase raises, and the script exits
 non-zero without printing the result line; a failed rank fails its phase.
@@ -1020,12 +1037,23 @@ def detector_card_vs_cpu(tr):
     return ds
 
 
-def loops_replay(golden, dev, rendered, read_launches):
+def loops_replay(golden, dev, rendered, read_launches, trace_paths):
     """Phase 13: phase 7's 100 frames again with loop closing on (the
     default config), gated as phase 7 against ``JAX_GOLDEN_LOOPS_100``, with
     as many loops as the JAX run and the same keyframes reaching each gate
-    of the detector.  Returns the report line, the tracker and the launches."""
-    rep, tr = golden.run_golden(LOOPS_FRAMES, dev, count_waits=True, rendered=rendered, loops=True)
+    of the detector.  The replay writes the Tracker's trace file and the
+    loop detector's log to ``trace_paths`` (phase 21 reads them): the
+    variables are read when the Tracker is built and when ``place/loop.py``
+    is imported, so the module's copy is set.  Returns the report line, the
+    tracker and the launches."""
+    from tpuslam_torch.place import loop as lp
+
+    os.environ["TPUSLAM_TRACE"], lp._DEBUG_PATH = trace_paths["trace"], trace_paths["loop"]
+    try:
+        rep, tr = golden.run_golden(LOOPS_FRAMES, dev, count_waits=True, rendered=rendered, loops=True)
+    finally:
+        del os.environ["TPUSLAM_TRACE"]
+        lp._DEBUG_PATH = ""
     launches = read_launches()
     line = {k: rep.get(k) for k in GOLDEN_KEYS + ("loops", "loop_gates", "mean_frame_s")}
     line["loop_ms_per_keyframe"] = {k: v for k, v in rep["kf_stage_ms"].items() if k.startswith(("loop_", "kf_loop"))}
@@ -1778,6 +1806,184 @@ def ba_order_phase(dev, revisit, golden, gold_rendered, traj_7, read_launches, r
     return line, launches
 
 
+DIAG_CLI_FRAMES = 60  # phase 21: the flagship CLI's frames, run twice
+
+
+def trace_lines(path: str) -> list:
+    """The lines of a trace file, [] when it was not written."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def line_fid(line: str) -> int:
+    """The frame id of a ``fid=...`` / ``LOST fid=...`` / ``KF fid=...`` line."""
+    return int(line.split("fid=")[1].split()[0])
+
+
+def trace_file_gates(tr, rep, paths: dict) -> dict:
+    """Phase 21's trace-file gates on phase 13's run, made with
+    ``TPUSLAM_TRACE`` and ``TPUSLAM_LOOP_DEBUG`` set: one ``fid=`` line per
+    frame tracked after initialization (a frame without one must follow a
+    LOST line or a loop closure), the ``fid=`` lines those the Tracker
+    committed, one ``KF`` line per keyframe created after initialization,
+    and one detector ``fid=`` line per keyframe past the refractory and
+    covisibility checks (``LoopCloser.gates['covisible']``), one ``gate2``
+    line per keyframe past the shared-word gate and one ``gate3`` line per
+    keyframe past the score gate.  Returns the counts."""
+    lines = trace_lines(paths["trace"])
+    fid = [line_fid(x) for x in lines if x.startswith("fid=")]
+    lost = [line_fid(x) for x in lines if x.startswith("  LOST fid=")]
+    kf = [line_fid(x) for x in lines if x.startswith("  KF fid=")]
+    check(len(fid) + len(lost) + len(kf) == len(lines) and fid == sorted(set(fid)),
+          f"trace: {len(lines)} lines, each a fid, LOST or KF line, the fid lines in frame order")
+    first, n = rep["first_tracked"], rep["frames"]
+    missing = sorted(set(range(first + 1, n)) - set(fid))
+    cut = min(lost + [c[0] for c in tr.loop_closer.closures] + [n])
+    check(all(f > cut for f in missing) and all(f > first for f in fid),
+          f"trace: {len(fid)} fid lines for the {n - first - 1} frames after initialization (frame {first}); "
+          f"frames without one {missing[:10]} all after the first LOST line or closure ({cut})")
+    committed = sorted([f for f, _, _ in tr.kf_decisions] + lost)
+    check(fid == committed, f"trace: the fid lines are the {len(committed)} frames the Tracker committed")
+    made = [f for f, _, made in tr.kf_decisions if made]
+    created = [int(f) for f in tr._kf_fids[2:]]  # the first two are mono initialization's
+    check(kf == made == created, f"trace: {len(kf)} KF lines, the {len(created)} keyframes created after "
+          f"initialization ({created[:8]}...)")
+    log = trace_lines(paths["loop"])
+    gates = tr.loop_closer.gates
+    n_fid, n_g2, n_g3 = (sum(x.startswith(p) for x in log) for p in ("fid=", "  gate2 ", "  gate3 "))
+    check((n_fid, n_g2, n_g3) == (gates["covisible"], gates["words"], gates["score"]),
+          f"loop log: {n_fid} fid, {n_g2} gate2 and {n_g3} gate3 lines, the detector's gates "
+          f"covisible {gates['covisible']}, words {gates['words']}, score {gates['score']}")
+    out = {"fid_lines": len(fid), "lost_lines": len(lost), "kf_lines": len(kf), "loop_log_lines": len(log),
+           "loop_fid_lines": n_fid}
+    print("trace files " + json.dumps(out), flush=True)
+    return out
+
+
+def trace_summary(path: str) -> dict:
+    """Read a ``device_trace`` Chrome trace: kernel launches, host-side CUDA
+    API calls (both APIs' categories), the share of the window the device was
+    busy (the union of its kernels, copies and sets over the span of every
+    event), and the five kernels with the most device time."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -float("inf")
+    for a, b in device:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    by_name = Counter()
+    for e in kernels:
+        by_name[e["name"]] += float(e["dur"])
+    return {"kernel_launches": len(kernels),
+            "api_calls": sum(e.get("cat") in ("cuda_runtime", "cuda_driver") for e in events),
+            "window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3, "busy_share": busy / max(t1 - t0, 1e-9),
+            "top_kernels_us": [[name[:80], round(us, 1)] for name, us in by_name.most_common(5)]}
+
+
+def launch_windows(work: str, dev, wl, revisit) -> dict:
+    """Phase 21's launch counts: ``utils/profiler.device_trace`` around one
+    call of each window, after one untraced call: a tracked frame of the
+    slice, an LM iteration of bench.py's window (kf-major), ``run_local_ba``
+    on the revisit window, a relocalization (phase 12's query) and the
+    essential graph of phase 11's closure.  Each window ends in a
+    synchronize, so its device work is inside it."""
+    from tpuslam_torch import workload
+    from tpuslam_torch.backend import local_ba, posegraph
+    from tpuslam_torch.frontend.relocalize import relocalize
+    from tpuslam_torch.graph import lm
+    from tpuslam_torch.utils.profiler import device_trace
+
+    one = wl._replace(frames=wl.frames[:1])
+    st, d = workload.build_ba_window(0, dev)
+    w = lm.BAWeights()
+    cam, cfg, m, vocab, frame, _ = reloc_scene(dev)
+    (S, fixed, edges), eg_kw = revisit["essential_graph_args"]
+    windows = {
+        "slice_frame": lambda: workload.run_slice(one),
+        "bench_lm_iteration": lambda: lm.lm_iterations(st, d, w, 1, reproj_n=workload.BA_N),
+        "revisit_local_ba": lambda: local_ba.run_local_ba(revisit["map"], REVISIT_CENTER, revisit["cam"],
+                                                          revisit["cfg"]),
+        "relocalization": lambda: relocalize(m, frame, cam, vocab, cfg, n_kf=1),
+        "essential_graph": lambda: posegraph.optimize_essential_graph(S, fixed, edges, **eg_kw),
+    }
+    out = {}
+    for name, fn in windows.items():
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        logdir = os.path.join(work, "trace_" + name)
+        with device_trace(logdir):
+            fn()
+            torch.cuda.synchronize()
+        out[name] = trace_summary(os.path.join(logdir, "trace.json"))
+        check(out[name]["kernel_launches"] > 0, f"device_trace of {name}: kernels on the card")
+        print(f"launch window {name}: " + json.dumps(out[name]), flush=True)
+    return out
+
+
+def cli_repeat(work: str, folder: str):
+    """Phase 21: ``mono_icl --planes --objects`` from phase 14's folder twice
+    on its first DIAG_CLI_FRAMES frames, deterministic algorithms off: the
+    trajectories, keyframe frame ids and maps equal bit for bit (or the
+    first frame where they part).  Returns (the first split or None, the
+    maps' equality, seconds per run)."""
+    from tpuslam_torch.apps import common, mono_icl
+
+    made, make = [], common.make_tracker
+
+    def keep(*a, **kw):
+        made.append(make(*a, **kw))
+        return made[-1]
+
+    secs = []
+    common.make_tracker = keep
+    try:
+        for i in range(2):
+            t0 = time.perf_counter()
+            mono_icl.main([folder, "--max-frames", str(DIAG_CLI_FRAMES), "--planes", "--objects",
+                           "--out", os.path.join(work, f"repeat{i}")])
+            secs.append(time.perf_counter() - t0)
+            check(not torch.are_deterministic_algorithms_enabled(),
+                  f"repeat {i}: the CLI left deterministic algorithms off")
+    finally:
+        common.make_tracker = make
+    a, b = made
+    split = first_split(a.trajectory, b.trajectory)
+    return split, a._kf_fids == b._kf_fids, same_map(a.map, b.map), len(a.trajectory), secs
+
+
+def diagnostics_phase(work: str, folder: str, dev, wl, revisit, tr_loops, loops_rep, paths: dict):
+    """Phase 21: the trace files of phase 13's run, the launch counts of five
+    windows, and a fixed order with deterministic algorithms off (the CLI
+    twice, the essential graph twice).  Returns its line."""
+    from tpuslam_torch.backend import posegraph
+
+    traces = trace_file_gates(tr_loops, loops_rep, paths)
+    windows = launch_windows(work, dev, wl, revisit)
+    deterministic(False)
+    split, same_kfs, same_m, n_tracked, secs = cli_repeat(work, folder)
+    print(f"CLI repeat, deterministic algorithms off: mono_icl --planes --objects, {DIAG_CLI_FRAMES} frames twice "
+          f"({secs[0]:.1f} s, {secs[1]:.1f} s), {n_tracked} tracked: "
+          + ("trajectories equal bit for bit" if split is None else f"trajectories part at frame {split}")
+          + f", keyframe ids equal {same_kfs}, maps equal {same_m}", flush=True)
+    check(split is None and same_kfs and same_m, f"CLI repeat without deterministic algorithms: equal bit for bit "
+          f"(first split {split}, keyframe ids equal {same_kfs}, maps equal {same_m})")
+    (S, fixed, edges), eg_kw = revisit["essential_graph_args"]
+    (S1, c1), (S2, c2) = (posegraph.optimize_essential_graph(S, fixed, edges, **eg_kw) for _ in range(2))
+    check(torch.equal(S1, S2) and torch.equal(c1, c2), "the essential graph of phase 11's closure solved twice "
+          "without deterministic algorithms: equal bit for bit")
+    line = {"trace_files": traces, "launch_windows": windows, "cli_repeat_split_frame": split,
+            "cli_repeat_tracked": n_tracked, "cli_repeat_s": secs, "essential_graph_equal": True}
+    print("diagnostics " + json.dumps(line), flush=True)
+    return line
+
+
 def rank_main(argv) -> int:
     """Rank mode, started by :func:`run_ranks`: join the gloo group on
     ``cuda:0`` and run one rank of phase 17 (``--phase ba``) or 18
@@ -2034,25 +2240,28 @@ def main() -> int:
     phase_s["relocalization"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # --- 13. the golden replay with loop closing on -----------------------------------
-    reset_launches()
-    loops, tr_loops, launches_loops = loops_replay(golden, dev, gold_rendered, read_launches)
-    print(f"launches: loops replay {launches_loops}", flush=True)
-    check(launches_loops["fast_nms"] == LOOPS_FRAMES,
-          f"fast_nms launched {launches_loops['fast_nms']} times in {LOOPS_FRAMES} loops-on frames")
-    check(launches_loops["hamming_top2"] >= loops["tracked"] - 1,
-          f"hamming_top2 launched {launches_loops['hamming_top2']} times, once per hot-path frame")
-    (pyr, dims), k2_in = tracker_kernel_cases(tr_loops, gold_frames[0])
-    k1_err = max(k1_err, hold_k1({"loops_frame0": (pyr, dims)}, cuda_fast, orb))
-    k2_err = max(k2_err, hold_k2({"loops_frame_vs_ref_kf": k2_in}, cuda_match))
-    phase_s["loops_replay"] = time.perf_counter() - t_phase
-    t_phase = time.perf_counter()
-
-    # --- 14-16. the CLIs from disk ----------------------------------------------------
     from tpuslam_torch.apps.golden import GOLDEN_ANGLE_DEG, GOLDEN_FRAMES as N_GOLDEN
     from tpuslam_torch.io import synth
 
+    # phases 13-21 share a work directory (trace files, the written folder, ranks' files)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        # --- 13. the golden replay with loop closing on -----------------------------------
+        trace_paths = {"trace": os.path.join(work, "tracker_trace.txt"),
+                       "loop": os.path.join(work, "loop_debug.txt")}
+        reset_launches()
+        loops, tr_loops, launches_loops = loops_replay(golden, dev, gold_rendered, read_launches, trace_paths)
+        print(f"launches: loops replay {launches_loops}", flush=True)
+        check(launches_loops["fast_nms"] == LOOPS_FRAMES,
+              f"fast_nms launched {launches_loops['fast_nms']} times in {LOOPS_FRAMES} loops-on frames")
+        check(launches_loops["hamming_top2"] >= loops["tracked"] - 1,
+              f"hamming_top2 launched {launches_loops['hamming_top2']} times, once per hot-path frame")
+        (pyr, dims), k2_in = tracker_kernel_cases(tr_loops, gold_frames[0])
+        k1_err = max(k1_err, hold_k1({"loops_frame0": (pyr, dims)}, cuda_fast, orb))
+        k2_err = max(k2_err, hold_k2({"loops_frame_vs_ref_kf": k2_in}, cuda_match))
+        phase_s["loops_replay"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+        # --- 14-16. the CLIs from disk ----------------------------------------------------
         folder, decode_ms = write_golden_folder(work, dev, gold_frames, rend_rgbd.depth)
         cli, launches_cli, ck, (k1_cli, k2_cli) = cli_phase(work, folder, dev, read_launches, reset_launches)
         print(f"launches: cli {launches_cli}; frames/s over the loop's wall time, reads and decodes included: "
@@ -2097,14 +2306,24 @@ def main() -> int:
         phase_s["stream"] = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
 
-    # --- 20. the kf-major BA assembly: fixed order, card against CPU, times ----------
-    ba_order, launches_repeat = ba_order_phase(dev, revisit, golden, gold_rendered, tr_gold.trajectory,
-                                               read_launches, reset_launches)
-    print(f"launches: phase 7's replay again {launches_repeat}", flush=True)
-    phase_s["ba_order"] = time.perf_counter() - t_phase
-    print("phase seconds " + json.dumps(phase_s), flush=True)
+        # --- 20. the kf-major BA assembly: fixed order, card against CPU, times ----------
+        ba_order, launches_repeat = ba_order_phase(dev, revisit, golden, gold_rendered, tr_gold.trajectory,
+                                                   read_launches, reset_launches)
+        print(f"launches: phase 7's replay again {launches_repeat}", flush=True)
+        phase_s["ba_order"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
 
-    # --- 21. report -------------------------------------------------------------
+        # --- 21. diagnostics: trace files, launch counts, a fixed order without the mode ---
+        reset_launches()
+        diag = diagnostics_phase(work, folder, dev, wl, revisit, tr_loops, loops, trace_paths)
+        launches_diag = read_launches()
+        print(f"launches: diagnostics {launches_diag}", flush=True)
+        for name, n in launches_diag.items():
+            check(n > 0, f"{name} launched {n} times in phase 21")
+        phase_s["diagnostics"] = time.perf_counter() - t_phase
+        print("phase seconds " + json.dumps(phase_s), flush=True)
+
+    # --- 22. report -------------------------------------------------------------
     print(json.dumps({
         "slice_frames_per_s": fps, "slice_seconds": dt, "frames": n_frames,
         "median_n_final": float(np.median(n_final)), "final_x_m": x_last, "expected_x_m": x_expect,
@@ -2123,7 +2342,7 @@ def main() -> int:
         "rgbd_cli_frames_per_s": depth_lines["rgbd_cli"]["frames_per_s"],
         "stereo_cli_frames_per_s": depth_lines["stereo_cli"]["frames_per_s"],
         "dist_ba": dist_ba, "pipeline_frames_per_s": pipe["frames_per_s"], "stream_frames_per_s": stream["frames_per_s"],
-        "ba_order": ba_order,
+        "ba_order": ba_order, "diagnostics": diag,
         **loop, "phase_s": phase_s, "total_s": sum(phase_s.values()),
     }))
     kernels = [
@@ -2131,7 +2350,7 @@ def main() -> int:
          "launches": sum(n[name] for n in (launches, launches_small, launches_golden, launches_flag,
                                            launches_rgbd, launches_ster, launches_reloc, launches_loops,
                                            launches_cli, launches_loc, *launches_depth.values(), launches_pipe,
-                                           launches_stream, launches_repeat)),
+                                           launches_stream, launches_repeat, launches_diag)),
          "max_abs_err": err, **k}
         for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
     ]

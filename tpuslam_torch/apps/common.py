@@ -92,14 +92,12 @@ def make_tracker(args, cam: Camera, cfg: SlamConfig, sample_grays=None) -> Track
     ``--resume`` (``io/checkpoint.load_tracker``) and
     ``--localization-only``.
 
-    On a card it also asks torch for deterministic algorithms, so that a
-    dataset replays to the same map every run, as the reference's does: the
-    map's float scatter-adds (the BA and pose-graph assembly) otherwise sum
-    in the order their atomics land, and which keyframes culling keeps
-    turns on that order (PERF.md section 6).  It costs local BA time.  The
-    debugging fill of new allocations that comes with the mode stays off:
-    nothing here reads memory before writing it, and the fill would add a
-    launch per allocation to a launch-bound frame.
+    A dataset replays to the same map every run on one card, as the
+    reference's does, without torch's deterministic mode: every float sum
+    on the path has a fixed order (the BA's through ``lm._sum_at``, the
+    pose graph's through ``index_put(accumulate=True)``, the ORBvoc BoW's
+    in ``dbow_compat.bow_sparse``), and the other scatter-adds sum integers,
+    or float ones and ±1s, exact in any order.
 
     With ``--viz-every`` it first imports the drawing packages
     (:func:`require_viz`), so a host without them fails before the first
@@ -109,9 +107,6 @@ def make_tracker(args, cam: Camera, cfg: SlamConfig, sample_grays=None) -> Track
     if getattr(args, "max_kf_gap", 0):
         cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, max_frames_between_kf=args.max_kf_gap))
     device = torch.device(args.device)
-    if device.type == "cuda":
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        torch.utils.deterministic.fill_uninitialized_memory = False
     vocab, cfg = build_vocab(args.vocab, cfg, device, sample_grays, native=native_io(args))
     if args.resume:
         from ..io.checkpoint import load_tracker

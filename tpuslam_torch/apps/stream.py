@@ -18,8 +18,7 @@ EOF ends the stream; the trajectory and map files are dumped like the
 dataset apps' and the JSON report is printed last; the profiler's table goes
 to stderr.  Images are read with ``io/png.py`` (``cv2.imread`` in the
 reference), depth divided by ``--depth-factor``.  The ``Tracker`` is built
-as the dataset CLIs build it (``common.make_tracker``): on a card with
-deterministic algorithms.
+as the dataset CLIs build it (``common.make_tracker``).
 
 Usage:
   ls frames/*.png | awk '{print NR" "$0}' | python -m tpuslam_torch.apps.stream --sensor mono

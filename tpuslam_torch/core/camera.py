@@ -76,6 +76,17 @@ def backproject(cam: Camera, uv, depth):
     return torch.stack([x, y, depth], dim=-1)
 
 
+def distort_normalized(cam: Camera, xy):
+    """Radial-tangential distortion of normalized coordinates (..., 2)."""
+    k1, k2, p1, p2, k3 = cam.dist.unbind(0)
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
 def undistort_points(cam: Camera, uv, iters: int = 8):
     """Fixed-point undistortion, the scheme of ``cv::undistortPoints``."""
     xy_d = torch.stack(
@@ -93,6 +104,16 @@ def undistort_points(cam: Camera, uv, iters: int = 8):
             [(xy_d[..., 0] - dx) / radial, (xy_d[..., 1] - dy) / radial], dim=-1
         )
     return torch.stack([xy[..., 0] * cam.fx + cam.cx, xy[..., 1] * cam.fy + cam.cy], dim=-1)
+
+
+def in_image(cam: Camera, uv, margin: float = 0.0):
+    """(...) bool: pixels (..., 2) at least ``margin`` inside the image."""
+    return (
+        (uv[..., 0] >= margin)
+        & (uv[..., 0] < cam.width - margin)
+        & (uv[..., 1] >= margin)
+        & (uv[..., 1] < cam.height - margin)
+    )
 
 
 def camera_matrix(cam: Camera) -> torch.Tensor:

@@ -283,6 +283,23 @@ def quat_to_R(q):
     ])
 
 
+def R_to_quat(R):
+    """Rotation matrix -> unit quaternion (x, y, z, w), branch-free (Shepperd)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = 0.5 * torch.sqrt(torch.clamp(1.0 + tr, min=1e-12))
+    qx = 0.5 * torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=1e-12))
+    qy = 0.5 * torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=1e-12))
+    qz = 0.5 * torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=1e-12))
+    qx = qx * torch.sign(torch.where(m21 - m12 == 0, 1.0, m21 - m12))
+    qy = qy * torch.sign(torch.where(m02 - m20 == 0, 1.0, m02 - m20))
+    qz = qz * torch.sign(torch.where(m10 - m01 == 0, 1.0, m10 - m01))
+    q = torch.stack([qx, qy, qz, qw], dim=-1)
+    return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-32)
+
+
 def euler_zyx_to_R(roll, pitch, yaw):
     """ZYX euler, applied as Rz(yaw) Ry(pitch) Rx(roll) (g2o_cuboid.h:43-48)."""
     cr, sr = torch.cos(roll), torch.sin(roll)

@@ -19,11 +19,18 @@ keyframe culling), loop closing with its global BA, relocalization
 against the keyframe database, and localization mode: a frozen map, with
 relocalization and then last-frame visual odometry
 (:func:`match_motion_model_vo`) when map tracking fails.
+
+``TPUSLAM_TRACE=<path>``, read when a ``Tracker`` is built, appends the
+reference's per-frame trace lines to that file: one ``fid=...`` line per
+tracked frame with the scalars its keyframe decision read, a ``LOST``
+line when tracking fails and a ``KF`` line before each keyframe.  The
+lines are written from values already on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import NamedTuple, Optional
 
@@ -484,6 +491,7 @@ class Tracker:
         self._alloc_pending = None  # (host copy of the consumed count, avail)
         self._pt_valid_snap = None  # host copy of pt_valid for the freelist
         self.dbg = {}
+        self._trace_path = os.environ.get("TPUSLAM_TRACE", "")  # per-frame trace file
         self.kf_decisions = []  # (frame id, the scalars NeedNewKeyFrame read, made)
         self.stage_ms = {}  # cumulative host wall ms per keyframe stage
         self._stage_events = []  # (name, start, end) CUDA events, resolved lazily
@@ -841,6 +849,8 @@ class Tracker:
         n_mm, n_rf, used_rf, n_final, n_ref2, n_ref3, n_valid_kf, n_close_tr, n_close_free = (
             int(x) for x in scalars_np)
         self.dbg.update(n_mm=n_mm, n_rf=n_rf, used_rf=bool(used_rf))
+        self._trace(f"fid={frame_id} n_mm={n_mm} n_rf={n_rf} used_rf={used_rf} n_final={n_final} n_ref2={n_ref2} "
+                    f"n_ref3={n_ref3} n_valid_kf={n_valid_kf} since_kf={self.frames_since_kf}")
         ref_fid = self._kf_slot_fid.get(ref_slot, -1)
         if ref_fid >= 0 and np.isfinite(T_ref_np).all():
             self.traj_rel[frame_id] = (ref_slot, ref_fid, T_np @ se3_inv_np(T_ref_np))
@@ -858,6 +868,11 @@ class Tracker:
                 self.trajectory.append((int(frame_id), np.array(self.T_cur)))
             return np.array(self.T_cur)
         if lost:
+            # the reference's pipelined commit writes one LOST line, its
+            # synchronous _track one per failed test (tracking.py:917, 1002, 1009)
+            self._trace(f"  LOST fid={frame_id} (n_rf={n_rf} n_final={n_final})" if pipelined else
+                        f"  LOST fid={frame_id} (motion+ref: n_rf={n_rf})" if rf_lost else
+                        f"  LOST fid={frame_id} (localmap: n_final={n_final})")
             self.state = self.LOST
             self._dev_T = self._dev_vel = None
             self._map_fork = False
@@ -881,11 +896,19 @@ class Tracker:
         self.kf_decisions.append((frame_id, dict(n_in=n_final, n_ref=self.dbg.get("n_ref"),
                                                   n_valid_kf=n_valid_kf, since_kf=since), make))
         if make:
+            self._trace(f"  KF fid={frame_id} c1a={self.dbg.get('c1a')} c2={self.dbg.get('c2')} "
+                        f"n_ref={self.dbg.get('n_ref')}")
             self._create_keyframe(frame, frame_id, out.kp_pt, out.T)
             self._map_fork = pipelined
         if pipelined:
             self.trajectory.append((int(frame_id), np.array(self.T_cur)))
         return np.array(self.T_cur)
+
+    def _trace(self, line: str) -> None:
+        """Append one line to the ``TPUSLAM_TRACE`` file, if one was named."""
+        if self._trace_path:
+            with open(self._trace_path, "a") as f:
+                f.write(line + "\n")
 
     def _track(self, frame: Frame, frame_id: int):
         """Synchronous tracking of one frame's features (process_frame)."""

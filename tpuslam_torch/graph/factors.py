@@ -184,6 +184,11 @@ def cuboid_plane_residual(cub_pose, cub_scale, plane_w, face_idx):
     return geo.plane_ominus(plane_w, torch.take_along_dim(faces, idx, dim=-2)[..., 0, :])
 
 
+def se3_prior_residual(T_cw, meas_T_cw):
+    """6-dim pose-graph / odometry prior: log(meas^-1 T)."""
+    return geo.se3_log(geo.se3_inv(meas_T_cw) @ T_cw)
+
+
 def linearize(res_fn, retractions, estimates, *args):
     """Residuals and Jacobians of ``res_fn`` with respect to the tangent
     deltas of its variables, at zero (the reference takes ``jacfwd`` of each factor).

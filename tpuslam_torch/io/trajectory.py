@@ -12,27 +12,15 @@ the RMSE.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..core import geometry as geo
 
 
 def R_to_quat(R) -> np.ndarray:
-    """(x, y, z, w) unit quaternion of a rotation matrix, branch-free
-    (Shepperd), in float32: the numpy twin of
-    ``tpuslam/core/geometry.py:R_to_quat``."""
-    R = np.asarray(R, np.float32)
-    m00, m01, m02 = R[0]
-    m10, m11, m12 = R[1]
-    m20, m21, m22 = R[2]
-    tr = m00 + m11 + m22
-    one, lo = np.float32(1.0), np.float32(1e-12)
-    qw = np.float32(0.5) * np.sqrt(np.maximum(one + tr, lo))
-    qx = np.float32(0.5) * np.sqrt(np.maximum(one + m00 - m11 - m22, lo))
-    qy = np.float32(0.5) * np.sqrt(np.maximum(one - m00 + m11 - m22, lo))
-    qz = np.float32(0.5) * np.sqrt(np.maximum(one - m00 - m11 + m22, lo))
-    qx = qx * np.sign(one if m21 - m12 == 0 else m21 - m12)
-    qy = qy * np.sign(one if m02 - m20 == 0 else m02 - m20)
-    qz = qz * np.sign(one if m10 - m01 == 0 else m10 - m01)
-    q = np.array([qx, qy, qz, qw], np.float32)
-    return q / (np.linalg.norm(q) + np.float32(1e-32))
+    """(x, y, z, w) unit quaternion of a (3, 3) rotation matrix, in float32
+    (``core/geometry.R_to_quat`` on the CPU)."""
+    return geo.R_to_quat(torch.tensor(np.asarray(R, np.float32))).numpy()
 
 
 def save_cuboids(path, minimal_vectors):

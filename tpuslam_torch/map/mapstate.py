@@ -220,6 +220,19 @@ def point_obs_counts(m: MapState):
     return torch.sum(incidence(m) > 0, dim=0).to(torch.int32)
 
 
+def local_window(m: MapState, center_kf: int, max_kfs: int, min_weight: float = 15.0):
+    """The covisibility window around ``center_kf``: its ``max_kfs`` top
+    neighbours by shared points (weight >= ``min_weight``, KeyFrame.cc:
+    289-350's edge rule), the centre first.  Returns (keyframe ids
+    (max_kfs,) int32, mask (max_kfs,)); equal weights keep the lower slot
+    first, as ``lax.top_k``."""
+    weights = torch.where(m.kf_valid, covisibility(m)[center_kf], -1.0)
+    weights = _set_row(weights, center_kf, float("inf"))  # the centre first
+    top_w, top_i = topk_stable(weights, max_kfs)
+    mask = (top_w >= min_weight) | (torch.arange(max_kfs, device=top_w.device) == 0)
+    return top_i.to(torch.int32), mask
+
+
 def predict_scale_level(dist, max_dist, n_levels: int = 8, scale_factor: float = 1.2):
     """Predicted pyramid octave of a point seen from ``dist`` (float);
     points without a computed band (max_dist >= 1e8) predict level 0."""
@@ -322,6 +335,15 @@ def cull_points(m: MapState, kill_mask) -> MapState:
     return m.replace(
         pt_valid=m.pt_valid & ~kill_mask,
         kf_pt=torch.where(kill_of_obs, -1, m.kf_pt),
+    )
+
+
+def replace_point(m: MapState, old_id: int, new_id: int) -> MapState:
+    """MapPoint::Replace: every keyframe link to ``old_id`` moves to
+    ``new_id``, and ``old_id`` is no longer valid."""
+    return m.replace(
+        kf_pt=torch.where(m.kf_pt == old_id, new_id, m.kf_pt),
+        pt_valid=_set_row(m.pt_valid, old_id, False),
     )
 
 

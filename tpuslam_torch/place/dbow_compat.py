@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..graph.lm import _sum_at
 from ..map.mapstate import popcount32
 
 NATIVE_SRC = Path(__file__).resolve().parents[2] / "native" / "vocab_loader.cpp"
@@ -176,14 +177,16 @@ def bow_sparse(words, weights):
     """Per-descriptor (word, idf) -> a padded sparse BoW vector (uwords (N,),
     uweights (N,)): each word's summed weight on its first slot in sorted
     order, 0 and word -1 elsewhere, L1-normalized (DBoW2's BowVector
-    addWeight + normalize)."""
+    addWeight + normalize).  Each word's weights are summed one after
+    another in sorted order, on either device (``lm._sum_at``), so a card
+    gives the same vector every run."""
     n = words.shape[0]
     order = torch.argsort(torch.where(words >= 0, words, 1 << 30), stable=True)
     w = words[order]
     wt = torch.where(w >= 0, weights[order], 0.0)
     is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=w.device), w[1:] != w[:-1]])
     run_id = torch.cumsum(is_start.to(torch.int64), 0) - 1
-    run_mass = torch.zeros(n, dtype=wt.dtype, device=w.device).index_add(0, run_id, wt)
+    run_mass = _sum_at(torch.zeros(n, dtype=wt.dtype, device=w.device), run_id, wt)
     mass = torch.where(is_start, run_mass[run_id], 0.0)
     uwords = torch.where((w >= 0) & (mass > 0), w, -1)
     mass = torch.where(uwords >= 0, mass, 0.0)

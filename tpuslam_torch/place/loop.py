@@ -25,10 +25,18 @@ streaks), so ties fall as they do there.  The Sim3 RANSAC samples are
 the reference's own draw keyed by ``PRNGKey(kf_cur)``
 (``initializer.ransac_samples``), from :meth:`LoopCloser._sim3_samples`,
 which a test may replace.
+
+``TPUSLAM_LOOP_DEBUG=<path>``, read when the module is imported, appends
+the reference's detector log to that file (one ``fid=...`` line per
+keyframe past the refractory and covisibility checks, then a line per
+gate and per Sim3 step) and saves each Sim3 attempt's inputs beside it
+(``<path>.sim3_<frame id>_<loop slot>.npz``).  The values only the log
+reads are fetched only while it is on.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import Counter
 
@@ -44,6 +52,14 @@ from ..frontend.initializer import ransac_samples
 from ..kernels import match as km
 from ..map import mapstate as ms
 from . import vocab as vb
+
+_DEBUG_PATH = os.environ.get("TPUSLAM_LOOP_DEBUG", "")
+
+
+def _dbg(msg: str) -> None:
+    if _DEBUG_PATH:
+        with open(_DEBUG_PATH, "a") as f:
+            f.write(msg + "\n")
 
 
 def _loop_candidate_stats(m: ms.MapState, bow, kf_slot: int):
@@ -118,6 +134,14 @@ class LoopCloser:
         min_score = float(scores[covisible].min())
         pool = ~covisible & kf_valid
         pool[kf_slot] = False
+        if _DEBUG_PATH:
+            fids = fetch((m.kf_frame_id,))[0]
+            pool_scores = np.where(pool, scores, -1.0)
+            best = int(np.argmax(pool_scores))
+            _dbg(f"fid={cur_fid} kf_seen={self.kf_seen} pool={int(pool.sum())} "
+                 f"min_score={min_score:.5f} best_pool_score={pool_scores.max():.5f} "
+                 f"best_slot={best} best_fid={int(fids[best]) if pool.any() else -1} "
+                 f"common_best={float(np.where(pool, common_raw, 0).max()):.0f}")
         # a detection without candidates clears the groups (LoopClosing.cc:160-166)
         common = np.where(pool, common_raw, 0.0)
         if common.max() <= 0:
@@ -125,6 +149,7 @@ class LoopCloser:
             return m, False
         self.gates["words"] += 1
         score_and_match = pool & (common > 0.8 * common.max()) & (scores >= min_score)
+        _dbg(f"  gate2 n_score_and_match={int(score_and_match.sum())}")
         if not score_and_match.any():
             self.prev_groups = []
             return m, False
@@ -158,6 +183,8 @@ class LoopCloser:
             if streak >= cfg.loop.covisibility_consistency_th:
                 consistent_enough.append(int(c))
         self.prev_groups = new_groups
+        _dbg(f"  gate3 candidates={candidates.tolist()} streaks={[s for _, s in new_groups]} "
+             f"consistent={consistent_enough}")
         if not consistent_enough:
             return m, False
         self.gates["consistent"] += 1
@@ -165,6 +192,7 @@ class LoopCloser:
         lap("gates")
         for loop_kf in consistent_enough[:3]:
             res = self._compute_sim3(m, kf_slot, loop_kf, fetch)
+            _dbg(f"  sim3 cand={loop_kf} ok={res is not None}")
             lap("sim3")
             if res is None:
                 continue
@@ -197,7 +225,9 @@ class LoopCloser:
         idx, _, ok = km.match_descriptors(m.kf_desc[kf_cur], m.kf_desc[kf_loop], has_cur, has_loop,
                                           max_dist=50.0, ratio=0.75, mutual=True)
         ok_np = fetch((ok,))[0]
-        if int(ok_np.sum()) < cfg.loop.min_bow_matches:
+        n_matches = int(ok_np.sum())
+        _dbg(f"    sim3: desc_matches={n_matches} (need {cfg.loop.min_bow_matches})")
+        if n_matches < cfg.loop.min_bow_matches:
             return None
         pt_cur = m.kf_pt[kf_cur]
         pt_loop = m.kf_pt[kf_loop][idx]
@@ -207,6 +237,12 @@ class LoopCloser:
         uv2 = m.kf_uv[kf_loop][idx]
         res = solve_sim3(P1, P2, ok, uv1, uv2, self.K, self._sim3_samples(torch.from_numpy(ok_np), kf_cur))
         res_ok, n_inl = fetch((res.ok, res.n_inliers))
+        _dbg(f"    sim3: ransac ok={bool(res_ok)} inliers={int(n_inl)}")
+        if _DEBUG_PATH:
+            names = ("P1", "P2", "ok", "uv1", "uv2", "K", "T_cur", "T_loop", "fid")
+            arrays = dict(zip(names, fetch((P1, P2, ok, uv1, uv2, self.K, m.kf_pose[kf_cur], m.kf_pose[kf_loop],
+                                             m.kf_frame_id[kf_cur]))))
+            np.savez(_DEBUG_PATH + f".sim3_{int(arrays.pop('fid'))}_{kf_loop}.npz", **arrays)
         if not bool(res_ok) or int(n_inl) < cfg.loop.min_sim3_inliers:
             return None
         S_cl = geo.sim3_from_sRt(res.s, res.R, res.t)
@@ -221,7 +257,11 @@ class LoopCloser:
         kp_proj, _ = _project_and_match(m, kf_cur, loop_pts, S_ref @ m.kf_pose[kf_loop], self.K, radius=10.0)
         total = torch.sum(kp_proj | (inl & ok & (pt_cur >= 0)))
         n_in_np, total_np = fetch((n_in, total))
-        if int(n_in_np) < cfg.loop.min_sim3_inliers or int(total_np) < cfg.loop.min_total_matches:
+        _dbg(f"    sim3: gn inliers={int(n_in_np)}")
+        if int(n_in_np) < cfg.loop.min_sim3_inliers:
+            return None
+        _dbg(f"    sim3: guided total={int(total_np)} (need {cfg.loop.min_total_matches})")
+        if int(total_np) < cfg.loop.min_total_matches:
             return None
         return S_ref, loop_pts
 

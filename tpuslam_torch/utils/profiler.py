@@ -1,15 +1,20 @@
 """Named-section wall-time profiler (the port's copy of
-``tpuslam/utils/profiler.py:Profiler``).
+``tpuslam/utils/profiler.py``).
 
 The semantics of Thirdparty/tictoc_profiler (tic/toc pairs aggregated by
-name, profiler.hpp:54-84) with a context-manager API.
+name, profiler.hpp:54-84) with a context-manager API, plus
+:func:`device_trace`, a ``torch.profiler`` capture for device-side
+analysis.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
+
+import torch
 
 
 class Profiler:
@@ -54,3 +59,22 @@ class Profiler:
                 f"  mean {a['mean_ms']:.2f}ms  max {a['max_ms']:.2f}ms",
                 file=file,
             )
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Capture a ``torch.profiler`` trace of the block, host activity and,
+    with a card present, the card's kernels and copies, into
+    ``<logdir>/trace.json`` (Chrome trace format; chrome://tracing or
+    Perfetto open it)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
