@@ -175,7 +175,8 @@ In order, it
      deterministic algorithms off: bench.py's local-BA window
      (``workload.build_ba_window``) solved twice on the card (30 LM
      iterations, equal bit for bit, chi2 falls), ms per solve of the
-     kf-major and the generic path in turns, the same window without its
+     kf-major and the generic path in turns (the two generic solves equal
+     bit for bit), the same window without its
      vertical plane lanes on the card against the CPU (BA20_* tolerances),
      ``index_put(accumulate=True)`` and ``index_add`` each run twice on one
      input (reported), ``run_local_ba`` on phase 17's revisit window and
@@ -199,16 +200,31 @@ In order, it
      on the first 60 frames of phase 14's folder (trajectories, keyframe
      frame ids and maps equal bit for bit) and the essential graph twice
      (equal bit for bit); a ``diagnostics`` line;
- 22. prints each phase's seconds, the slice's frames/s, the device ms of
+ 22. the feature-level replays: ``Tracker.process_frame`` driven by the
+     frames of ``io/synthetic.render_frame`` (``apps/feature_replay.py``:
+     the room of 2500 points, every frame 1024 features, the golden
+     ``ICL.yaml`` camera, default capacities and flags, loops on), mono
+     points only over 120 frames, then RGB-D over 60 with the room's plane
+     and cuboid detections and ``rgbd_icl --planes --objects``'s semantic
+     flags; ``feature_replay`` lines (phase 7's keys, planes, cuboids,
+     factors per bundle, ``map_ba`` ms per keyframe, host waits per frame
+     kind).  Gates against ``JAX_SYNTHETIC_MONO_120`` and
+     ``JAX_SYNTHETIC_RGBD_60``: phase 7's (mono) or phase 9's (RGB-D)
+     tracking, keyframe and ATE gates, tracked >= 0.9 x the JAX run's,
+     planes and cuboids within 2, plane and bbox factors live in the RGB-D
+     BA; K1 launched 0 times (no image), K2 once per tracked frame and held
+     to its plain version at each run's 1024 x 1024 shapes;
+ 23. prints each phase's seconds, the slice's frames/s, the device ms of
      plane segmentation and of stereo matching per frame (CUDA events
      around one call), each kernel's device time (launches queued behind a
      spin, ``kernels/timing.py``) beside its bound and its plain version's
      host-paced time, then one JSON line of kernels (launches summed over
-     the sixteen paths that run on the card and launch them: the slice,
+     the paths that run on the card and launch them: the slice,
      the card's small replay, the golden, flagship, RGB-D and stereo
      replays, relocalization, the loops-on replay, the four CLI runs of
      phases 14-16, both pipeline ranks, the stream node, phase 20's
-     replay and phase 21), the card line, and the result.
+     replay, phase 21 and phase 22's two replays), the card line, and the
+     result.
 
 It imports nothing of JAX.  Any failed phase raises, and the script exits
 non-zero without printing the result line; a failed rank fails its phase.
@@ -303,6 +319,20 @@ JAX_STREAM_30 = {
     "first_tracked": 4, "tracked": 26, "keyframes_created": 7, "points": 753, "loops": 0,
     "states": {"INIT": 4, "OK": 26, "LOST": 0}, "ate_raw_m": 0.0034977182632096103,
 }
+# jax_golden_reference.py --synthetic --frames 120 and --synthetic --rgbd
+# --frames 60: the JAX package's Tracker through process_frame on the
+# feature-level frames of io/synthetic.py (phase 22)
+JAX_SYNTHETIC_MONO_120 = {
+    "first_tracked": 4, "tracked": 116, "keyframes_created": 8, "keyframes_live": 8, "points": 1512, "planes": 0,
+    "cuboids": 0, "loops": 0, "kf_frame_ids": [0, 4, 9, 14, 19, 49, 79, 107], "ba_mono_factors": 28497,
+    "ate_raw_m": 0.0018329161246340574, "ate_m": 0.0009370959894986157, "kf_ate_m": 0.0006235725045315152,
+}
+JAX_SYNTHETIC_RGBD_60 = {
+    "first_tracked": 0, "tracked": 60, "keyframes_created": 3, "keyframes_live": 3, "points": 950, "planes": 3,
+    "cuboids": 1, "loops": 0, "kf_frame_ids": [0, 30, 45], "ba_plane_factors": 6, "ba_bbox_factors": 1,
+    "stereo_factors": 2110, "ate_raw_m": 0.006457572499059241, "ate_m": 0.006686484425999535,
+    "kf_ate_m": 0.00631698152143009,
+}
 GOLDEN_FRAMES = 100
 CLI_FRAMES = 100
 PIPELINE_FRAMES = 30
@@ -331,8 +361,9 @@ STEREO_FRAMES = 100
 SMALL_FRAMES = 48
 LOOPS_FRAMES = 100
 # phase 11, the drifted revisit closed on the card and on the CPU at the
-# fixture's capacities: keyframe 11's corrected pose (the essential graph's
-# scatter-adds are float atomics on the card)
+# fixture's capacities: keyframe 11's corrected pose (each device sums the
+# essential graph's normal equations in a fixed order, through
+# ``lm._sum_at``, but the two orders and the two dense solvers differ)
 REVISIT_POSE_TOL = 1e-3
 # segment_planes, card against CPU on one frame's depth: the valid planes'
 # coefficients (unit normal and distance in metres); float sums of ~34k
@@ -1686,7 +1717,8 @@ def ba_order_phase(dev, revisit, golden, gold_rendered, traj_7, read_launches, r
     window (``workload.build_ba_window``: 16 + 16 keyframes of 1024 lanes,
     4096 points, 8 planes, 8 cuboids, every bundle bench.py packs), 30 LM
     iterations twice: equal bit for bit, and chi2 falls; ms per solve of
-    the kf-major and the generic (``reproj_n=0``) path, in turns.  The same
+    the kf-major and the generic (``reproj_n=0``) path, in turns, the two
+    generic solves equal bit for bit too.  The same
     window with its vertical plane lanes invalid (bench.py's measure a
     plane as perpendicular to itself, a factor whose Jacobian is about one
     over rounding: float32 solves with them are chaotic on any device) on
@@ -1720,8 +1752,9 @@ def ba_order_phase(dev, revisit, golden, gold_rendered, traj_7, read_launches, r
           f"bit for bit")
     check(chi2_1 < chi2_0, f"BA order: the bench window's chi2 falls, {chi2_0:.1f} -> {chi2_1:.1f}")
     generic_equal = same_state(g1, g2) and torch.equal(gc1, gc2)
-    print(f"BA order: bench window, ms per {iters}-iteration solve: kf-major {kf_ms}, generic {gen_ms}; generic "
-          f"solves equal bit for bit: {generic_equal}", flush=True)
+    print(f"BA order: bench window, ms per {iters}-iteration solve: kf-major {kf_ms}, generic {gen_ms}", flush=True)
+    check(generic_equal, f"BA order: two generic (reproj_n=0) solves of bench.py's window ({iters} LM iterations) "
+          f"equal bit for bit")
     # where an LM iteration's time goes: device ms of its parts (CUDA events, median of 5)
     reproj_only = d._replace(**{k: None for k in lm.BUNDLES})
     H = lm.build_system(st, d, w, reproj_n=n)
@@ -1807,6 +1840,8 @@ def ba_order_phase(dev, revisit, golden, gold_rendered, traj_7, read_launches, r
 
 
 DIAG_CLI_FRAMES = 60  # phase 21: the flagship CLI's frames, run twice
+SYN_MONO_FRAMES = 120  # phase 22: the feature-level replays' frames
+SYN_RGBD_FRAMES = 60
 
 
 def trace_lines(path: str) -> list:
@@ -1982,6 +2017,48 @@ def diagnostics_phase(work: str, folder: str, dev, wl, revisit, tr_loops, loops_
             "cli_repeat_tracked": n_tracked, "cli_repeat_s": secs, "essential_graph_equal": True}
     print("diagnostics " + json.dumps(line), flush=True)
     return line
+
+
+def feature_replay_phase(dev, cuda_match, read_launches, reset_launches):
+    """Phase 22: ``Tracker.process_frame`` driven by the feature-level frames
+    of ``io/synthetic.py`` (``apps/feature_replay.py``), at full width: mono
+    points only over 120 frames, then RGB-D with plane and cuboid detections
+    over 60, each gated against the JAX package's CPU run of the same frames;
+    K2 held to its plain version at each run's 1024 x 1024 shapes.  Returns
+    (the ``feature_replay`` line, the launches of both runs summed, K2's
+    largest difference from its plain version)."""
+    from tpuslam_torch.apps import feature_replay
+
+    line, launches, k2_err = {}, Counter(), 0.0
+    for name, n, rgbd, ref in (("mono", SYN_MONO_FRAMES, False, JAX_SYNTHETIC_MONO_120),
+                               ("rgbd", SYN_RGBD_FRAMES, True, JAX_SYNTHETIC_RGBD_60)):
+        tag = f"feature replay {name}"
+        reset_launches()
+        rep, tr = feature_replay.run(n, dev, rgbd=rgbd, count_waits=True)
+        got = read_launches()
+        launches.update(got)
+        line[name] = {k: rep.get(k) for k in GOLDEN_KEYS + SEMANTIC_KEYS + ("stereo_factors",)}
+        line[name].update(map_ba_ms_per_keyframe=rep["kf_stage_ms"].get("map_ba"), launches=got, **wait_summary(tr))
+        print(f"feature_replay {name} " + json.dumps(line[name]), flush=True)
+        replay_gates(tag, rep, ref, n, depth=rgbd)
+        if not rgbd:  # the depth gates hold this already
+            check(rep["tracked"] >= 0.9 * ref["tracked"],
+                  f"{tag}: tracked {rep['tracked']} >= 0.9 x the JAX package's {ref['tracked']}")
+        for key in ("planes", "cuboids"):
+            check(abs(rep[key] - ref[key]) <= 2, f"{tag}: {rep[key]} {key}, JAX package {ref[key]} (within 2)")
+        if rgbd:
+            for key in ("ba_plane_obs_factors", "ba_cub_bbox_factors"):
+                check(rep.get(key, 0) > 0, f"{tag}: {rep.get(key, 0)} valid {key[3:-8]} factors over the local BAs")
+        check(got["fast_nms"] == 0, f"{tag}: fast_nms launched {got['fast_nms']} times (no image on this path)")
+        check(got["hamming_top2"] > 0 and got["hamming_top2"] >= rep["tracked"] - 1,
+              f"{tag}: hamming_top2 launched {got['hamming_top2']} times, once per tracked frame")
+        m, ref_kf = tr.map, tr.ref_kf
+        case = (tr.last_frame.desc, m.kf_desc[ref_kf], (m.kf_pt[ref_kf] >= 0) & m.kf_kp_valid[ref_kf])
+        check(case[0].shape[0] == case[1].shape[0] == 1024, f"{tag}: K2's shapes {case[0].shape[0]} x "
+              f"{case[1].shape[0]}")
+        k2_err = max(k2_err, hold_k2({f"feature_{name}_frame_vs_ref_kf": case}, cuda_match))
+    line["k2_max_abs_err"] = k2_err
+    return line, dict(launches), k2_err
 
 
 def rank_main(argv) -> int:
@@ -2321,9 +2398,16 @@ def main() -> int:
         for name, n in launches_diag.items():
             check(n > 0, f"{name} launched {n} times in phase 21")
         phase_s["diagnostics"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+        # --- 22. feature-level replays through process_frame ---------------------------
+        feat, launches_feat, k2_feat = feature_replay_phase(dev, cuda_match, read_launches, reset_launches)
+        print(f"launches: feature-level replays {launches_feat}", flush=True)
+        k2_err = max(k2_err, k2_feat)
+        phase_s["feature_replay"] = time.perf_counter() - t_phase
         print("phase seconds " + json.dumps(phase_s), flush=True)
 
-    # --- 22. report -------------------------------------------------------------
+    # --- 23. report -------------------------------------------------------------
     print(json.dumps({
         "slice_frames_per_s": fps, "slice_seconds": dt, "frames": n_frames,
         "median_n_final": float(np.median(n_final)), "final_x_m": x_last, "expected_x_m": x_expect,
@@ -2342,7 +2426,7 @@ def main() -> int:
         "rgbd_cli_frames_per_s": depth_lines["rgbd_cli"]["frames_per_s"],
         "stereo_cli_frames_per_s": depth_lines["stereo_cli"]["frames_per_s"],
         "dist_ba": dist_ba, "pipeline_frames_per_s": pipe["frames_per_s"], "stream_frames_per_s": stream["frames_per_s"],
-        "ba_order": ba_order, "diagnostics": diag,
+        "ba_order": ba_order, "diagnostics": diag, "feature_replay": feat,
         **loop, "phase_s": phase_s, "total_s": sum(phase_s.values()),
     }))
     kernels = [
@@ -2350,7 +2434,7 @@ def main() -> int:
          "launches": sum(n[name] for n in (launches, launches_small, launches_golden, launches_flag,
                                            launches_rgbd, launches_ster, launches_reloc, launches_loops,
                                            launches_cli, launches_loc, *launches_depth.values(), launches_pipe,
-                                           launches_stream, launches_repeat, launches_diag)),
+                                           launches_stream, launches_repeat, launches_diag, launches_feat)),
          "max_abs_err": err, **k}
         for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
     ]

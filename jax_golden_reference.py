@@ -81,6 +81,19 @@ their states counted (``states``), the final report, and from its
 Sim3-aligned raw ATE.  ``chip_smoke.py``'s ``JAX_STREAM_30`` holds the run
 of ``--stream --frames 30``, and its ``JAX_GOLDEN_LOOPS_30`` (the 2-rank
 pipeline's reference) the run of ``--loops --frames 30``.
+
+``--synthetic`` drives ``Tracker.process_frame`` with the feature-level
+frames of ``tpuslam.io.synthetic`` (no image): the room of
+``make_room_scene(2500, --frames, seed=0)``, each frame's 1024 features
+from ``render_frame``, the golden ``ICL.yaml`` camera, the default
+capacities and flags (loop closing on), the configuration of the port's
+``tpuslam_torch/apps/feature_replay.py``.  With ``--rgbd`` the frames carry
+depth and the room its planes and cuboids, whose detections
+(``render_plane_detections``, ``render_cuboid_detections``) each frame
+hands to the ``Tracker``, with ``rgbd_icl --planes --objects``'s semantic
+flags.  The ATE is against the scene's poses.  ``chip_smoke.py``'s
+``JAX_SYNTHETIC_MONO_120`` and ``JAX_SYNTHETIC_RGBD_60`` hold the runs of
+``--synthetic --frames 120`` and ``--synthetic --rgbd --frames 60``.
 """
 
 from __future__ import annotations
@@ -298,11 +311,15 @@ def main(argv=None):
                     help="mono_icl from a written folder, then --resume --localization-only on it")
     ap.add_argument("--stream", action="store_true",
                     help="the stdin stream node on the written golden frames (mono, --vocab lsh)")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="feature-level frames of io/synthetic.py through process_frame (loops on)")
     args = ap.parse_args(argv)
     if args.localize:
         return localize(args.frames)
     if args.stream:
         return stream(args.frames)
+    if args.synthetic:
+        args.loops = True  # the default flags
     if args.small:
         cspec = synth.CameraSpec(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5)
         caps = Capacities(max_keypoints=512, max_keyframes=256, max_points=8192, local_ba_points=2048)
@@ -312,6 +329,10 @@ def main(argv=None):
     sensor = "rgbd" if args.rgbd else "stereo" if args.stereo else "mono"
     flags = (flagship_flags() if args.flagship else rgbd_flags() if args.rgbd
              else FeatureFlags(enable_loop_closing=False))
+    if args.synthetic:
+        flags = (dataclasses.replace(FeatureFlags(), detect_plane=True, detect_object=True,
+                                     optimize_with_plane_3d=True, optimize_with_cuboid_2d=True)
+                 if args.rgbd else FeatureFlags())
     if args.loops:
         flags = dataclasses.replace(flags, enable_loop_closing=True)
     cfg = SlamConfig().replace(sensor=sensor, caps=caps, orb=orb, flags=flags)
@@ -337,15 +358,26 @@ def main(argv=None):
             return correct(self, m, kf_cur, kf_loop, *a, **kw)
 
         jloop.LoopCloser._correct_loop = recorded_correct
-    det_dir = tempfile.mkdtemp(prefix="golden_det_") if args.flagship or args.rgbd else ""
-    frames, poses_wc, depths, rights = render(args.frames, cspec, det_dir=det_dir, depth=args.rgbd,
-                                              right=args.stereo, planes=args.flagship)
     cam = Camera.make(cspec.fx, cspec.fy, cspec.cx, cspec.cy, width=cspec.width,
                       height=cspec.height, bf=cspec.fx * cspec.baseline)
+    if args.synthetic:
+        from tpuslam.io import synthetic as jsyn
+
+        scene = jsyn.make_room_scene(2500, args.frames, 0, with_planes=args.rgbd, with_cuboids=args.rgbd)
+        frames = [jsyn.render_frame(scene, f, cam, n_features=cfg.orb.n_features, with_depth=args.rgbd)
+                  for f in range(args.frames)]
+        syn_dets = [(jsyn.render_plane_detections(scene, f, cfg.caps.max_planes_per_frame),
+                     jsyn.render_cuboid_detections(scene, f, cam, cfg.caps.max_cuboids_per_frame))
+                    if args.rgbd else (None, None) for f in range(args.frames)]
+    else:
+        det_dir = tempfile.mkdtemp(prefix="golden_det_") if args.flagship or args.rgbd else ""
+        frames, poses_wc, depths, rights = render(args.frames, cspec, det_dir=det_dir, depth=args.rgbd,
+                                                  right=args.stereo, planes=args.flagship)
     K_np = np.asarray(cam.K)
     tracker = Tracker(cam, cfg)
     semantic = args.flagship or args.rgbd
-    sem = {"rescales": 0, "ba_plane_factors": 0, "ba_bbox_factors": 0, "stereo_factors": 0}
+    sem = {"ba_mono_factors": 0} if args.synthetic else {}
+    sem.update({"rescales": 0, "ba_plane_factors": 0, "ba_bbox_factors": 0, "stereo_factors": 0})
     rescale, local_ba, stereo_matches = jms.rescale_map, jlm.local_ba, jks.compute_stereo_matches
     n_matched = []
 
@@ -354,6 +386,8 @@ def main(argv=None):
         return rescale(m, s_)
 
     def counted_local_ba(state, data, w, **kw):
+        if "ba_mono_factors" in sem:
+            sem["ba_mono_factors"] += int(np.asarray(data.mono.valid).sum())
         sem["ba_plane_factors"] += int(np.asarray(data.plane_obs.valid).sum())
         sem["ba_bbox_factors"] += int(np.asarray(data.cub_bbox.valid).sum())
         sem["stereo_factors"] += int(np.asarray(data.stereo.valid).sum())
@@ -370,6 +404,12 @@ def main(argv=None):
     t_all = time.perf_counter()
     for fid, gray in enumerate(frames):
         pdet = cdet = None
+        if args.synthetic:
+            t0 = time.perf_counter()
+            T = tracker.process_frame(gray, fid, *syn_dets[fid])
+            times.append(time.perf_counter() - t0)
+            first = fid if T is not None and first is None else first
+            continue
         if args.flagship:
             pdet = read_offline_planes(os.path.join(det_dir, f"{fid}_offline_plane_multiplane.txt"),
                                        cfg.caps.max_planes_per_frame)
@@ -390,14 +430,17 @@ def main(argv=None):
             first = fid
     tracker.flush()
     wall = time.perf_counter() - t_all
-    gt = [np.linalg.inv(np.asarray(p, np.float64)) for p in poses_wc]
+    gt = (scene.poses.astype(np.float64) if args.synthetic
+          else [np.linalg.inv(np.asarray(p, np.float64)) for p in poses_wc])
     corrected = _corrected_trajectory(tracker)
     extra = {}
     if semantic:
         extra.update({k: sem[k] for k in ("rescales", "ba_plane_factors", "ba_bbox_factors")})
+    if args.synthetic:
+        extra["ba_mono_factors"] = sem["ba_mono_factors"]
     if sensor != "mono":
         extra["stereo_factors"] = sem["stereo_factors"]
-    if args.rgbd:
+    if args.rgbd and not args.synthetic:
         extra["online_planes"] = online_planes
     if args.stereo:
         extra["stereo_matches"] = float(np.median(n_matched))

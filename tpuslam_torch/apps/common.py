@@ -25,7 +25,7 @@ import torch
 from ..core import geometry as geo
 from ..core.camera import Camera
 from ..core.config import SlamConfig
-from ..frontend.tracking import Tracker
+from ..frontend.tracking import Frame, Tracker
 from ..io.datasets import load_settings_yaml
 from ..io.trajectory import ate_rmse, save_cuboids, save_kitti, save_planes, save_tum
 from ..kernels.orb import OrbExtractor
@@ -94,9 +94,8 @@ def make_tracker(args, cam: Camera, cfg: SlamConfig, sample_grays=None) -> Track
 
     A dataset replays to the same map every run on one card, as the
     reference's does, without torch's deterministic mode: every float sum
-    on the path has a fixed order (the BA's through ``lm._sum_at``, the
-    pose graph's through ``index_put(accumulate=True)``, the ORBvoc BoW's
-    in ``dbow_compat.bow_sparse``), and the other scatter-adds sum integers,
+    on the path has a fixed order (the BA's, the pose graph's and the ORBvoc
+    BoW's through ``lm._sum_at``), and the other scatter-adds sum integers,
     or float ones and ±1s, exact in any order.
 
     With ``--viz-every`` it first imports the drawing packages
@@ -186,7 +185,10 @@ def build_vocab(name: str, cfg, device, sample_grays=None, native: bool = False)
 
 def _stage(gray, device):
     """Start a frame's upload: a numpy image goes through pinned memory with
-    ``non_blocking=True``, so the copy overlaps the previous frame's work."""
+    ``non_blocking=True``, so the copy overlaps the previous frame's work.
+    A feature-level ``Frame`` is staged field by field."""
+    if isinstance(gray, Frame):
+        return Frame(*(_stage(x, device) for x in gray))
     if isinstance(gray, torch.Tensor) and gray.device == device:
         return gray
     t = gray if isinstance(gray, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(gray))
@@ -215,7 +217,9 @@ def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False,
     depth)`` for an RGB-D tracker and ``(frame_id, left, right)`` for a
     stereo one (common.py:167-215 of the reference: a stereo item goes to
     ``process_stereo_pair``, an RGB-D one to ``process_image`` with its
-    depth; a missing depth or right image goes as mono).  The next item is
+    depth; a missing depth or right image goes as mono), or ``(frame_id,
+    frame)`` with a feature-level ``Frame`` (``io/synthetic.render_frame``),
+    which goes to ``process_frame``.  The next item is
     drawn from ``items`` (a dataset reader reads and decodes its files
     then) and its upload started, pinned and non-blocking, before the
     current frame is processed: the reference's ``prefetched``.  ``per_frame(item)``, given the uploaded item, may return the
@@ -261,7 +265,9 @@ def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False,
                 warnings.simplefilter("always")
             pdet, cdet = per_frame(cur) if per_frame is not None else (None, None)
             with prof.section("time single frame"):
-                if sensor == "stereo" and cur[2] is not None:
+                if isinstance(gray, Frame):
+                    tracker.process_frame(gray, fid, plane_det=pdet, cuboid_det=cdet)
+                elif sensor == "stereo" and cur[2] is not None:
                     tracker.process_stereo_pair(gray, cur[2], fid, plane_det=pdet, cuboid_det=cdet)
                 else:
                     tracker.process_image(gray, fid, depth=cur[2] if sensor == "rgbd" and len(cur) > 2 else None,

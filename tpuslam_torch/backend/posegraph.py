@@ -7,8 +7,9 @@ loop); edges are relative Sim3 measurements.  Each Gauss-Newton iteration
 linearizes every edge residual r = log(M_ji S_i S_j^-1) in forward mode
 with respect to left-multiplied tangents, scatter-adds the dense (7K, 7K)
 normal equations and solves them with ``torch.linalg.solve``.  The scatter
-is ``index_put(accumulate=True)``: float atomics on the card, so the sums'
-order there is not fixed.
+goes through ``graph.lm._sum_at``, so each entry's terms are summed in edge
+order on either device (on the CPU ``index_put(accumulate=True)`` would add
+them atomically across threads, in no fixed order).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from ..core import geometry as geo
 from ..graph import factors as fac
+from ..graph import lm
 
 
 class Sim3Edges(NamedTuple):
@@ -51,22 +53,21 @@ def assemble_sim3_system(S, edges: Sim3Edges, D: int):
     dev = S.device
     ar = torch.arange(7, device=dev)
 
-    def rows(idx):
-        return (7 * idx[:, None, None] + ar[None, :, None]).expand(-1, 7, 7)
-
-    def cols(idx):
-        return (7 * idx[:, None, None] + ar[None, None, :]).expand(-1, 7, 7)
+    def flat(ri, ci):
+        rows = 7 * ri[:, None, None] + ar[None, :, None]
+        return (rows * D + 7 * ci[:, None, None] + ar[None, None, :]).reshape(-1)
 
     JiW = Ji * w[:, None, None]
     JjW = Jj * w[:, None, None]
     Hij = torch.einsum("fdi,fdj->fij", JiW, Jj)
-    H = torch.zeros((D, D), dtype=S.dtype, device=dev)
-    for ri, ci, blk in ((ei, ei, torch.einsum("fdi,fdj->fij", JiW, Ji)), (ej, ej, torch.einsum("fdi,fdj->fij", JjW, Jj)),
-                        (ei, ej, Hij), (ej, ei, Hij.transpose(-1, -2))):
-        H.index_put_((rows(ri), cols(ci)), blk, accumulate=True)
-    b = torch.zeros(D, dtype=S.dtype, device=dev)
-    b.index_put_((7 * ei[:, None] + ar,), -torch.einsum("fdi,fd->fi", JiW, r), accumulate=True)
-    b.index_put_((7 * ej[:, None] + ar,), -torch.einsum("fdi,fd->fi", JjW, r), accumulate=True)
+    # the reference's four H scatters and two b scatters, in its order
+    # (posegraph.py:68-76), each as one run of terms summed in edge order
+    blocks = ((ei, ei, torch.einsum("fdi,fdj->fij", JiW, Ji)), (ej, ej, torch.einsum("fdi,fdj->fij", JjW, Jj)),
+              (ei, ej, Hij), (ej, ei, Hij.transpose(-1, -2)))
+    H = lm._sum_at(torch.zeros(D * D, dtype=S.dtype, device=dev), torch.cat([flat(ri, ci) for ri, ci, _ in blocks]),
+                   torch.cat([blk.reshape(-1) for _, _, blk in blocks])).view(D, D)
+    b = lm._sum_at(torch.zeros(D, dtype=S.dtype, device=dev), (7 * torch.cat([ei, ej])[:, None] + ar).reshape(-1),
+                   -torch.cat([torch.einsum("fdi,fd->fi", JiW, r), torch.einsum("fdi,fd->fi", JjW, r)]).reshape(-1))
     return H, b, torch.sum(r * r * w[:, None])
 
 

@@ -417,8 +417,9 @@ def _reproj_lanes(state: BAState, data: BAData, w: BAWeights):
 
 
 def _assemble_reproj_generic(lanes, K, P, D):
-    """Any lane layout: each lane's 6x6, 6, 3x3, 3 and 6x3 blocks summed with
-    ``index_add`` (float atomics on the card: the sums' order is not fixed).
+    """Any lane layout: each lane's 6x6, 6, 3x3, 3 and 6x3 blocks summed
+    through ``_sum_at``, in lane order on either device (``index_add`` on
+    the CPU, as before; on the card sorted runs in place of float atomics).
     Returns (pose blocks (K, 6, 6), pose b (K, 6), H_ll, b_l, H_cl (D, P, 3))."""
     dev = lanes[0].r.device
     kf = torch.cat([x.kf for x in lanes])
@@ -431,11 +432,11 @@ def _assemble_reproj_generic(lanes, K, P, D):
                        torch.einsum("fri,frj->fij", JxW, x.Jx), -torch.einsum("fri,fr->fi", JxW, x.r),
                        torch.einsum("fri,frj->fij", JpW, x.Jx)))
     Hpp, bp, Hxx, bx, Hpx = (torch.cat(b) for b in zip(*blocks))
-    pose_blocks = torch.zeros((K, 6, 6), device=dev).index_add(0, kf, Hpp)
-    pose_b = torch.zeros((K, 6), device=dev).index_add(0, kf, bp)
-    H_ll = torch.zeros((P, 3, 3), device=dev).index_add(0, pt, Hxx)
-    b_l = torch.zeros((P, 3), device=dev).index_add(0, pt, bx)
-    cross = torch.zeros((K * P, 6, 3), device=dev).index_add(0, kf * P + pt, Hpx)
+    pose_blocks = _sum_at(torch.zeros((K, 6, 6), device=dev), kf, Hpp)
+    pose_b = _sum_at(torch.zeros((K, 6), device=dev), kf, bp)
+    H_ll = _sum_at(torch.zeros((P, 3, 3), device=dev), pt, Hxx)
+    b_l = _sum_at(torch.zeros((P, 3), device=dev), pt, bx)
+    cross = _sum_at(torch.zeros((K * P, 6, 3), device=dev), kf * P + pt, Hpx)
     H_cl = cross.reshape(K, P, 6, 3).permute(0, 2, 1, 3).reshape(6 * K, P, 3)
     H_cl = torch.cat([H_cl, torch.zeros((D - 6 * K, P, 3), device=dev)])
     return pose_blocks, pose_b, H_ll, b_l, H_cl
@@ -837,8 +838,8 @@ def lm_iterations(state: BAState, data: BAData, w: BAWeights, n_iters: int, lam0
     rejected.  The reference accepts one whose chi2 fell, and its chi2 masks
     non-finite factors out: a step that overflows some poses drops their
     factors and "lowers" the chi2, and the outlier gate then unlinks every
-    observation of those poses.  On the card, where float atomics reorder
-    the sums, one such step emptied most of the golden replay's map and
+    observation of those poses.  On the card, which sums in another order
+    than the CPU, one such step emptied most of the golden replay's map and
     tracking was lost for good.  Where every trial is finite, as in all the
     parity tests, the two agree."""
     free_c = _free_mask(state, data)
