@@ -560,7 +560,7 @@ def golden_replay(golden, dev):
 
 GOLDEN_KEYS = ("frames", "tracked", "first_tracked", "keyframes_created", "keyframes_live", "points",
                "ate_rmse_raw_m", "ate_rmse_m", "kf_ate_rmse_m", "frames_per_s", "median_frame_ms",
-               "kf_stage_ms", "kf_stage_device_ms", "kf_frame_ids")
+               "kf_stage_ms", "kf_stage_device_ms", "frame_stage_ms", "kf_frame_ids")
 
 
 def wait_summary(tr):

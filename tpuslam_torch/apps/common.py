@@ -354,8 +354,11 @@ def finish(tracker: Tracker, times: LoopTimes, gt=None, out_dir: str = "", metri
     """The report of the reference's ``finish``: counts (planes, cuboids and
     loops among them), frame times (``run_loop``'s: the median and mean
     frame, and ``frames_per_s``, the frames over the loop's wall time
-    ``wall_s``, reads and decodes included), per-keyframe stage ms (the loop
-    closer's as ``loop_*``), and with ``gt``
+    ``wall_s``, reads and decodes included), per-keyframe stage ms
+    ``kf_stage_ms`` (``kf_*``, ``map_*`` and the loop closer's as
+    ``loop_*``), the frame program's and the host waits' ms per tracked
+    frame ``frame_stage_ms`` (``frame_*``, ``wait_*``; a tracked frame is
+    one run of the frame program), and with ``gt``
     (world->camera poses by frame id) the ATE of the corrected, the raw and
     the live keyframe trajectories, Sim3-aligned, or with ``metric`` (the
     depth sensors' metric maps) SE3-aligned without scale (common.py:365,
@@ -390,8 +393,10 @@ def finish(tracker: Tracker, times: LoopTimes, gt=None, out_dir: str = "", metri
         save_tracker(checkpoint, tracker)
     ft = np.array(times.frame_s)
     n_created = max(len(tracker._kf_fids), 1)
+    n_tracked = max(tracker.spans.count.get("frame_motion", 0), 1)
     # the loop closer's stages beside the keyframe's, averaged over created keyframes
-    stage_ms = dict(tracker.stage_ms)
+    per_frame = ("frame_", "wait_")
+    stage_ms = {k: v for k, v in tracker.stage_ms.items() if not k.startswith(per_frame)}
     if tracker.loop_closer is not None:
         stage_ms.update({f"loop_{k}": v for k, v in tracker.loop_closer.stage_ms.items()})
     report = {
@@ -409,6 +414,8 @@ def finish(tracker: Tracker, times: LoopTimes, gt=None, out_dir: str = "", metri
         "wall_s": times.wall_s,
         "frames_per_s": len(ft) / times.wall_s if len(ft) else None,
         "kf_stage_ms": {k: v / n_created for k, v in sorted(stage_ms.items())},
+        "frame_stage_ms": {k: v / n_tracked for k, v in sorted(tracker.stage_ms.items())
+                           if k.startswith(per_frame)},
         "relocalized": tracker.n_relocalized,
         "vo_frames": tracker.n_vo,
     }

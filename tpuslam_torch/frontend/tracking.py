@@ -10,6 +10,12 @@ host can enqueue the next frame from this frame's device outputs.
 
 ``ref_kf`` is a Python int: the host owns the reference keyframe.
 
+The frame program's functions take ``spans``, a recorder
+(``utils/profiler.Spans``) that the ``Tracker`` passes and whose default
+times nothing: ``frame_extract`` around the ORB extractor,
+``frame_motion``, ``frame_ref`` and ``frame_localmap`` around the three
+matches, and ``frame_pose_opt`` around each ``optimize_pose`` inside them.
+
 ``Tracker`` is the host state machine every app drives: monocular or
 depth (RGB-D, stereo) initialization, the pipelined hot path, the stereo
 entry point, keyframe insertion with close-depth densification and its
@@ -51,6 +57,7 @@ from ..map import mapstate as ms
 from ..place.loop import LoopCloser
 from ..place.vocab import random_vocabulary, update_kf_bow
 from ..semantic import associate as sa
+from ..utils.profiler import NO_SPANS, Spans
 from .initializer import initialize_two_view, ransac_samples
 from .relocalize import relocalize
 
@@ -134,7 +141,7 @@ def _count(n: int, idx):
 
 
 def match_motion_model(m: ms.MapState, frame: Frame, last_pt, last_angle, last_octave, T_pred,
-                       cam: Camera, radius: float):
+                       cam: Camera, radius: float, spans=NO_SPANS):
     """SearchByProjection(current, last) (ORBmatcher.cc:1328-1470) + pose
     optimization -> (T_opt, kp_pt, n_inliers).  The window scales with the
     last observation's octave and candidates keep to octaves within +-1."""
@@ -151,17 +158,18 @@ def match_motion_model(m: ms.MapState, frame: Frame, last_pt, last_angle, last_o
         m.pt_desc[lp], frame.desc, vis, frame.valid, gate_mask=gate, max_dist=100.0, ratio=0.9
     )
     ok = km.rotation_consistency(last_angle, frame.angle, idx, ok)
-    T_opt, inl, n_in = lm.optimize_pose(
-        T_pred, X, frame.uv[idx], _inv_sigma2(frame.octave[idx]), ok,
-        cam.fx, cam.fy, cam.cx, cam.cy, ur=frame.ur[idx], bf=cam.bf,
-    )
+    with spans.span("frame_pose_opt"):
+        T_opt, inl, n_in = lm.optimize_pose(
+            T_pred, X, frame.uv[idx], _inv_sigma2(frame.octave[idx]), ok,
+            cam.fx, cam.fy, cam.cx, cam.cy, ur=frame.ur[idx], bf=cam.bf,
+        )
     N = frame.uv.shape[0]
     bound = ok & inl
     kp_pt = _bind(N, torch.where(bound, idx, N), torch.where(bound, last_pt, -1))
     return T_opt, kp_pt, n_in
 
 
-def match_reference_kf(m: ms.MapState, frame: Frame, ref_kf: int, T_init, cam: Camera):
+def match_reference_kf(m: ms.MapState, frame: Frame, ref_kf: int, T_init, cam: Camera, spans=NO_SPANS):
     """TrackReferenceKeyFrame (Tracking.cc:988-1031): ungated descriptor
     matching against the reference KF's bound keypoints (kernel K2), then
     pose optimization -> (T_opt, kp_pt, n_inliers, n_matches)."""
@@ -174,16 +182,17 @@ def match_reference_kf(m: ms.MapState, frame: Frame, ref_kf: int, T_init, cam: C
     pt_ids = torch.where(ok, ref_pt[idx], -1)
     X = m.pt_pos[torch.clamp(pt_ids, min=0).long()]
     matched = ok & (pt_ids >= 0)
-    T_opt, inl, n_in = lm.optimize_pose(
-        T_init, X, frame.uv, _inv_sigma2(frame.octave), matched,
-        cam.fx, cam.fy, cam.cx, cam.cy, ur=frame.ur, bf=cam.bf,
-    )
+    with spans.span("frame_pose_opt"):
+        T_opt, inl, n_in = lm.optimize_pose(
+            T_init, X, frame.uv, _inv_sigma2(frame.octave), matched,
+            cam.fx, cam.fy, cam.cx, cam.cy, ur=frame.ur, bf=cam.bf,
+        )
     kp_pt = torch.where(matched & inl, pt_ids, -1)
     return T_opt, kp_pt, n_in, torch.sum(matched)
 
 
 def track_local_map(m: ms.MapState, frame: Frame, kp_pt, T_init, ref_kf: int, cam: Camera,
-                    n_local: int = 4096, radius: float = 6.0, n_local_kfs: int = 80):
+                    n_local: int = 4096, radius: float = 6.0, n_local_kfs: int = 80, spans=NO_SPANS):
     """TrackLocalMap (Tracking.cc:1163-1208): project the covisibility-local
     point set, bind more keypoints, optimize the pose again.  The local
     keyframes are the reference KF's first-order covisible neighbours, then
@@ -249,11 +258,12 @@ def track_local_map(m: ms.MapState, frame: Frame, kp_pt, T_init, ref_kf: int, ca
     add = _bind(N, torch.where(ok, idx, N), torch.where(ok, pt_ids, -1))
     kp_pt2 = torch.where(kp_pt >= 0, kp_pt, add)
 
-    T_opt, inl, n_in = lm.optimize_pose(
-        T_init, m.pt_pos[torch.clamp(kp_pt2, min=0).long()], frame.uv,
-        _inv_sigma2(frame.octave), kp_pt2 >= 0, cam.fx, cam.fy, cam.cx, cam.cy,
-        ur=frame.ur, bf=cam.bf,
-    )
+    with spans.span("frame_pose_opt"):
+        T_opt, inl, n_in = lm.optimize_pose(
+            T_init, m.pt_pos[torch.clamp(kp_pt2, min=0).long()], frame.uv,
+            _inv_sigma2(frame.octave), kp_pt2 >= 0, cam.fx, cam.fy, cam.cx, cam.cy,
+            ur=frame.ur, bf=cam.bf,
+        )
     kp_pt_out = torch.where((kp_pt2 >= 0) & inl, kp_pt2, -1)
 
     # found/visible counters (MapPoint::IncreaseVisible/Found)
@@ -314,23 +324,27 @@ def track_and_decide(
     th_depth: float,
     n_local: int = 4096,
     n_local_kfs: int = 80,
+    spans=NO_SPANS,
 ) -> TrackStep:
     """The whole per-frame tracking path on one frame's features: motion-model
     match + pose opt, the reference-KF match (computed unconditionally,
     selected by inlier count), the local-map track, and every scalar the
     keyframe decision (NeedNewKeyFrame, Tracking.cc:1227-1252) needs."""
     T_pred = geo.se3_renorm(velocity @ T_cur)
-    T_mm, kp_mm, n_mm = match_motion_model(
-        m, frame, last_kp_pt, last_angle, last_octave, T_pred, cam, radius_motion
-    )
-    T_rf, kp_rf, n_rf, _ = match_reference_kf(m, frame, ref_kf, T_cur, cam)
+    with spans.span("frame_motion"):
+        T_mm, kp_mm, n_mm = match_motion_model(
+            m, frame, last_kp_pt, last_angle, last_octave, T_pred, cam, radius_motion, spans=spans
+        )
+    with spans.span("frame_ref"):
+        T_rf, kp_rf, n_rf, _ = match_reference_kf(m, frame, ref_kf, T_cur, cam, spans=spans)
     used_rf = n_mm < min_track_motion
     T1 = torch.where(used_rf, T_rf, T_mm)
     kp1 = torch.where(used_rf, kp_rf, kp_mm)
-    T2, kp2, n_final, m = track_local_map(
-        m, frame, kp1, T1, ref_kf, cam, n_local=n_local, radius=radius_localmap,
-        n_local_kfs=n_local_kfs,
-    )
+    with spans.span("frame_localmap"):
+        T2, kp2, n_final, m = track_local_map(
+            m, frame, kp1, T1, ref_kf, cam, n_local=n_local, radius=radius_localmap,
+            n_local_kfs=n_local_kfs, spans=spans,
+        )
 
     obs_count = ms.point_obs_counts(m)
     ref_pt = m.kf_pt[ref_kf]
@@ -375,11 +389,13 @@ def track_image_and_decide(
     n_local: int = 4096,
     n_local_kfs: int = 80,
     has_depth: bool = False,
+    spans=NO_SPANS,
 ):
     """:func:`track_and_decide` with ORB extraction in front: image in,
     (TrackStep, Frame) out.  ``extractor`` carries the reference's static
     ORB settings (n_features, n_levels, scale_factor, thresholds)."""
-    feats = extractor(gray.to(torch.float32))
+    with spans.span("frame_extract"):
+        feats = extractor(gray.to(torch.float32))
     d = ur = None
     if has_depth:
         d, ur = sample_depth_at_keypoints(feats.uv, depth, cam.bf)
@@ -387,7 +403,7 @@ def track_image_and_decide(
     step = track_and_decide(
         m, frame, T_cur, velocity, last_kp_pt, last_angle, last_octave, ref_kf, cam,
         radius_motion, radius_localmap, min_track_motion, th_depth,
-        n_local=n_local, n_local_kfs=n_local_kfs,
+        n_local=n_local, n_local_kfs=n_local_kfs, spans=spans,
     )
     return step, frame
 
@@ -418,10 +434,12 @@ def match_for_init(f1: Frame, f2: Frame):
 
 class _HostCopy:
     """Device tensors copied into pinned host buffers without waiting; the
-    first :meth:`get` waits on the CUDA event recorded after the copies."""
+    first :meth:`get` waits on the CUDA event recorded after the copies,
+    counted in ``waits`` and timed as the span ``wait_event``."""
 
-    def __init__(self, tensors, waits: dict):
+    def __init__(self, tensors, waits: dict, spans):
         self._waits = waits
+        self._spans = spans
         self._event = None
         if tensors[0].device.type == "cuda":
             self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
@@ -433,10 +451,11 @@ class _HostCopy:
             self._host = list(tensors)
 
     def get(self):
-        if self._event is not None:
-            self._event.synchronize()
-            self._waits["event"] = self._waits.get("event", 0) + 1
-            self._event = None
+        with self._spans.span("wait_event"):
+            if self._event is not None:
+                self._event.synchronize()
+                self._waits["event"] = self._waits.get("event", 0) + 1
+                self._event = None
         return [h.numpy() for h in self._host]
 
 
@@ -493,8 +512,11 @@ class Tracker:
         self.dbg = {}
         self._trace_path = os.environ.get("TPUSLAM_TRACE", "")  # per-frame trace file
         self.kf_decisions = []  # (frame id, the scalars NeedNewKeyFrame read, made)
-        self.stage_ms = {}  # cumulative host wall ms per keyframe stage
-        self._stage_events = []  # (name, start, end) CUDA events, resolved lazily
+        # cumulative host wall ms per stage: the frame program's frame_*, the
+        # host's waits wait_*, the keyframe chain's kf_* and map_*
+        self.stage_ms = {}
+        self.spans = Spans(self.stage_ms)
+        self._stage_events = []  # (name, start, end) CUDA events of kf_* and map_*, resolved lazily
         self._stage_device_ms = {}
         self.waits = {}  # explicit host waits on the device, by kind
         self.velocity = np.eye(4, dtype=np.float32)
@@ -540,34 +562,21 @@ class Tracker:
         return t.clone()
 
     def _copy_to_host(self, tensors):
-        return _HostCopy(tensors, self.waits)
+        return _HostCopy(tensors, self.waits, self.spans)
 
     def _sync_read(self, t):
-        """A read the host must wait for (initialization, slot reuse)."""
-        if self.device.type == "cuda":
-            self.waits["read"] = self.waits.get("read", 0) + 1
-        return t.cpu().numpy()
+        """A read the host must wait for (initialization, slot reuse),
+        timed as the span ``wait_read``."""
+        with self.spans.span("wait_read"):
+            if self.device.type == "cuda":
+                self.waits["read"] = self.waits.get("read", 0) + 1
+            return t.cpu().numpy()
 
-    def _lap_start(self):
-        return [self._mark()]
-
-    def _mark(self):
-        ev = None
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-        return time.perf_counter(), ev
-
-    def _lap(self, t, prefix, name):
-        """Close stage ``prefix_name``: host wall ms now, device ms (between
-        CUDA events) when :meth:`stage_device_ms` reads them."""
-        t.append(self._mark())
-        (t0, e0), (t1, e1) = t[-2], t[-1]
-        key = f"{prefix}_{name}"
-        self.dbg[f"{key}_ms"] = round((t1 - t0) * 1e3, 1)
-        self.stage_ms[key] = self.stage_ms.get(key, 0.0) + (t1 - t0) * 1e3
-        if e1 is not None:
-            self._stage_events.append((key, e0, e1))
+    def _laps(self, key: str):
+        """Sequential keyframe-chain stages from ``key`` on: host wall ms,
+        and device ms (between CUDA events) when :meth:`stage_device_ms`
+        reads them."""
+        return self.spans.laps(key, events=self._stage_events if self.device.type == "cuda" else None)
 
     def stage_device_ms(self) -> dict:
         """Cumulative device ms per keyframe stage: the time between CUDA
@@ -642,6 +651,7 @@ class Tracker:
                 self.ref_kf, self.cam, tc.search_radius_motion, tc.search_radius_localmap,
                 tc.min_track_motion, th_depth, self.extractor,
                 n_local=cfg.caps.local_ba_points, n_local_kfs=tc.max_local_keyframes, has_depth=d is not None,
+                spans=self.spans,
             )
             fetch = self._copy_to_host((out.scalars, out.T, out.T_ref))
             loops_before = self.n_loops
@@ -919,7 +929,7 @@ class Tracker:
             self.map, frame, self._upload(self.T_cur), self._upload(self.velocity),
             self.last_kp_pt, self.last_frame.angle, self.last_frame.octave, self.ref_kf, self.cam,
             tc.search_radius_motion, tc.search_radius_localmap, tc.min_track_motion, th_depth,
-            n_local=cfg.caps.local_ba_points, n_local_kfs=tc.max_local_keyframes,
+            n_local=cfg.caps.local_ba_points, n_local_kfs=tc.max_local_keyframes, spans=self.spans,
         )
         scalars_np, T_np, T_ref_np = self._copy_to_host((out.scalars, out.T, out.T_ref)).get()
         self._commit(frame_id, out, frame, self.ref_kf, scalars_np, T_np, T_ref_np, pipelined=False)
@@ -1131,32 +1141,33 @@ class Tracker:
         return int(free[np.argmin(fids[free])])
 
     def _create_keyframe(self, frame: Frame, frame_id: int, kp_pt, T_dev=None):
-        t = self._lap_start()
-        slot = self._alloc_kf_slot()
-        if slot is None:
-            return
-        T = T_dev if T_dev is not None else self._upload(self.T_cur)
-        self.map = ms.add_keyframe(
-            self.map, slot, T, frame_id, frame.uv, frame.octave, frame.angle, frame.desc,
-            frame.valid, kp_pt, frame.ur, frame.depth,
-        )
-        self.ref_kf = slot
-        self.frames_since_kf = 0
-        self._kf_fids.append(frame_id)
-        self._kf_slot_fid[slot] = frame_id
-        if self.cfg.sensor in ("rgbd", "stereo"):
-            self._create_depth_points(slot, frame, frame_id, T)
-        self._lap(t, "kf", "add")
-        self._semantic_step(slot, kp_pt)
-        self._lap(t, "kf", "semantic")
-        self._local_mapping_step(slot, frame_id)
-        self._lap(t, "kf", "mapping")
-        if self.loop_closer is not None:
-            self.map, closed = self.loop_closer.on_keyframe(self.map, slot, self.n_kf, frame_id=frame_id,
-                                                            fetch=self._fetch)
-            self._lap(t, "kf", "loop")
-            if closed:
-                self._after_loop_closure(slot)
+        with self._laps("kf_add") as lap:
+            slot = self._alloc_kf_slot()
+            if slot is None:
+                return
+            T = T_dev if T_dev is not None else self._upload(self.T_cur)
+            self.map = ms.add_keyframe(
+                self.map, slot, T, frame_id, frame.uv, frame.octave, frame.angle, frame.desc,
+                frame.valid, kp_pt, frame.ur, frame.depth,
+            )
+            self.ref_kf = slot
+            self.frames_since_kf = 0
+            self._kf_fids.append(frame_id)
+            self._kf_slot_fid[slot] = frame_id
+            if self.cfg.sensor in ("rgbd", "stereo"):
+                self._create_depth_points(slot, frame, frame_id, T)
+            lap.next("kf_semantic")
+            self._semantic_step(slot, kp_pt)
+            lap.next("kf_mapping")
+            self._local_mapping_step(slot, frame_id)
+            closed = False
+            if self.loop_closer is not None:
+                lap.next("kf_loop")
+                self.map, closed = self.loop_closer.on_keyframe(self.map, slot, self.n_kf, frame_id=frame_id,
+                                                                fetch=self._fetch)
+            lap.end()
+        if closed:
+            self._after_loop_closure(slot)
         self.last_kp_pt = self.map.kf_pt[slot]
 
     def _after_loop_closure(self, slot: int):
@@ -1284,32 +1295,32 @@ class Tracker:
         """LocalMapping::Run for one keyframe (LocalMapping.cc:49-145): cull
         points, triangulate with neighbours, fuse, local BA, cull keyframes.
         Enqueued without waiting, apart from eigh's check in triangulation."""
-        t = self._lap_start()
         cfg = self.cfg
-        f = self._kf_fids
-        fid_recent_min = f[-4] if len(f) >= 4 else 0
-        fid_old_max = f[-3] if len(f) >= 3 else -(1 << 30)
-        self.map = ms.cull_points(self.map, bm.point_cull_mask(self.map, fid_recent_min, fid_old_max))
-        n_nb = 10
-        pos, kp2, chosen, nb_ids = bm.triangulate_with_neighbors(
-            self.map, kf_slot, self.K, self.cam.bf / max(self.cam.fx, 1e-6), scale_factor=cfg.orb.scale_factor,
-            mono=cfg.sensor == "mono", n_nb=n_nb,
-        )
-        avail_dev, avail_np = self._alloc_begin(n_nb * self.map.kf_pt.shape[1])
-        self.map, n_dev = bm.insert_triangulated(
-            self.map, kf_slot, pos, kp2, chosen, nb_ids, avail_dev, cfg.caps.max_points, fid=frame_id,
-        )
-        self._alloc_end(n_dev, avail_np)
-        self._lap(t, "map", "tri")
-        self.map = bm.fuse_duplicates(self.map, kf_slot, self.K)
-        self.map = ms.update_point_stats(self.map)
-        self._lap(t, "map", "fuse")
-        if self.n_kf > 2:
-            self.map, _ = run_local_ba(self.map, kf_slot, self.cam, cfg, stats=self.ba_factors)
-        self._lap(t, "map", "ba")
-        if self.n_kf > 3:
-            self.map, _ = ms.cull_keyframes_sequential(
-                self.map, kf_slot, cfg.tracking.kf_cull_redundancy, th_obs=cfg.tracking.kf_cull_min_obs,
+        with self._laps("map_tri") as lap:
+            f = self._kf_fids
+            fid_recent_min = f[-4] if len(f) >= 4 else 0
+            fid_old_max = f[-3] if len(f) >= 3 else -(1 << 30)
+            self.map = ms.cull_points(self.map, bm.point_cull_mask(self.map, fid_recent_min, fid_old_max))
+            n_nb = 10
+            pos, kp2, chosen, nb_ids = bm.triangulate_with_neighbors(
+                self.map, kf_slot, self.K, self.cam.bf / max(self.cam.fx, 1e-6), scale_factor=cfg.orb.scale_factor,
+                mono=cfg.sensor == "mono", n_nb=n_nb,
             )
-        self._snapshot_free_slots()
-        self._lap(t, "map", "kfcull")
+            avail_dev, avail_np = self._alloc_begin(n_nb * self.map.kf_pt.shape[1])
+            self.map, n_dev = bm.insert_triangulated(
+                self.map, kf_slot, pos, kp2, chosen, nb_ids, avail_dev, cfg.caps.max_points, fid=frame_id,
+            )
+            self._alloc_end(n_dev, avail_np)
+            lap.next("map_fuse")
+            self.map = bm.fuse_duplicates(self.map, kf_slot, self.K)
+            self.map = ms.update_point_stats(self.map)
+            lap.next("map_ba")
+            if self.n_kf > 2:
+                self.map, _ = run_local_ba(self.map, kf_slot, self.cam, cfg, stats=self.ba_factors)
+            lap.next("map_kfcull")
+            if self.n_kf > 3:
+                self.map, _ = ms.cull_keyframes_sequential(
+                    self.map, kf_slot, cfg.tracking.kf_cull_redundancy, th_obs=cfg.tracking.kf_cull_min_obs,
+                )
+            self._snapshot_free_slots()
+            lap.end()

@@ -37,7 +37,6 @@ reads are fetched only while it is on.
 from __future__ import annotations
 
 import os
-import time
 from collections import Counter
 
 import numpy as np
@@ -51,6 +50,7 @@ from ..core.camera import camera_matrix
 from ..frontend.initializer import ransac_samples
 from ..kernels import match as km
 from ..map import mapstate as ms
+from ..utils.profiler import Spans
 from . import vocab as vb
 
 _DEBUG_PATH = os.environ.get("TPUSLAM_LOOP_DEBUG", "")
@@ -96,6 +96,7 @@ class LoopCloser:
         self.last_loop_kf_seen = -1000
         self.n_loops_closed = 0
         self.stage_ms = {}  # cumulative host wall ms per stage
+        self.spans = Spans(self.stage_ms, prefix="loop_")  # traced as tpuslam/loop_<stage>
         self.gates = Counter()  # keyframes that reached each gate
         self.closures = []  # (current keyframe's frame id, loop keyframe's) per closure
 
@@ -109,23 +110,23 @@ class LoopCloser:
         id (read from the map when -1).  ``fetch``: reads device tensors to
         numpy in one copy (the Tracker's counted reads); the default waits
         with ``.cpu()``."""
-        fetch = fetch or ms.read_numpy
-        t = [time.perf_counter()]
+        with self.spans.laps("bow") as lap:
+            return self._detect_and_close(m, kf_slot, n_kf, frame_id, fetch or ms.read_numpy, lap)
 
-        def lap(name):
-            t.append(time.perf_counter())
-            self.stage_ms[name] = self.stage_ms.get(name, 0.0) + (t[-1] - t[-2]) * 1e3
-
+    def _detect_and_close(self, m: ms.MapState, kf_slot: int, n_kf: int, frame_id: int, fetch, lap):
+        """:meth:`on_keyframe` inside its stages: ``bow``, ``stats``,
+        ``gates``, then ``sim3`` per candidate tried and ``correct``.  A
+        stage left by an early return is not timed."""
         cfg = self.cfg
         m, bow = vb.update_kf_bow(self.vocab, m, kf_slot)
-        lap("bow")
+        lap.next("stats")
         self.kf_seen += 1
         if n_kf < 10 or self.kf_seen - self.last_loop_kf_seen < 10:
             return m, False
         self.gates["stats"] += 1
         scores, common_raw, cov_row, kf_valid = fetch(_loop_candidate_stats(m, bow, kf_slot))
         cur_fid = int(frame_id) if frame_id >= 0 else int(fetch((m.kf_frame_id[kf_slot],))[0])
-        lap("stats")
+        lap.next("gates")
         covisible = cov_row >= 15
         if covisible.sum() == 0:
             self.prev_groups = []
@@ -189,17 +190,17 @@ class LoopCloser:
             return m, False
         self.gates["consistent"] += 1
         consistent_enough.sort(key=lambda c: -scores[c])
-        lap("gates")
+        lap.next("sim3")
         for loop_kf in consistent_enough[:3]:
             res = self._compute_sim3(m, kf_slot, loop_kf, fetch)
             _dbg(f"  sim3 cand={loop_kf} ok={res is not None}")
-            lap("sim3")
+            lap.next("sim3" if res is None else "correct")
             if res is None:
                 continue
             self.gates["sim3"] += 1
             S_cl, loop_pts = res
             m = self._correct_loop(m, kf_slot, loop_kf, S_cl, loop_pts, fetch)
-            lap("correct")
+            lap.end()
             self.last_loop_fid = cur_fid
             self.last_loop_kf_seen = self.kf_seen
             self.prev_groups = []
