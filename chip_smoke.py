@@ -214,7 +214,17 @@ In order, it
      planes and cuboids within 2, plane and bbox factors live in the RGB-D
      BA; K1 launched 0 times (no image), K2 once per tracked frame and held
      to its plain version at each run's 1024 x 1024 shapes;
- 23. prints each phase's seconds, the slice's frames/s, the device ms of
+ 23. the pose LM as CUDA graphs (``graph/lm.py:optimize_pose``): one
+     60-frame session of points only and one of the flagship, loop
+     closing on (``apps/golden.run_golden``), with the graphs and with the
+     eager body (``lm._optimize_pose_body``): every pose-LM call's pose,
+     inlier mask and count, the returned poses and the final maps equal bit
+     for bit; 3 graph replays and no eager call per tracked call; over the
+     process no eager call on the card, no failed capture and one capture
+     per signature; then the 560-frame golden CLI replays (``mono_icl``,
+     flagship and points only, loops on) read their known raw ATE
+     (``GOLDEN_560_RAW_ATE_M``); a ``pose_graph`` line;
+ 24. prints each phase's seconds, the slice's frames/s, the device ms of
      plane segmentation and of stereo matching per frame (CUDA events
      around one call), each kernel's device time (launches queued behind a
      spin, ``kernels/timing.py``) beside its bound and its plain version's
@@ -223,8 +233,8 @@ In order, it
      the card's small replay, the golden, flagship, RGB-D and stereo
      replays, relocalization, the loops-on replay, the four CLI runs of
      phases 14-16, both pipeline ranks, the stream node, phase 20's
-     replay, phase 21 and phase 22's two replays), the card line, and the
-     result.
+     replay, phase 21, phase 22's two replays and phase 23's runs), the card
+     line, and the result.
 
 It imports nothing of JAX.  Any failed phase raises, and the script exits
 non-zero without printing the result line; a failed rank fails its phase.
@@ -2061,6 +2071,121 @@ def feature_replay_phase(dev, cuda_match, read_launches, reset_launches):
     return line, dict(launches), k2_err
 
 
+
+# phase 23: sessions as long as the benchmark's (60 frames), and the 560-frame golden CLI replays'
+# raw ATE on the card (``mono_icl`` on ``write_sequence``'s folder, loops on)
+POSE_GRAPH_FRAMES = 60
+GOLDEN_560_RAW_ATE_M = {"flagship": 0.3293508, "points": 0.1493258}
+
+
+def pose_graph_session(golden, dev, rendered, flagship, pose_fn):
+    """One of phase 23's sessions: ``golden.run_golden`` over the first
+    ``POSE_GRAPH_FRAMES`` of ``rendered``, points only or the flagship, loop
+    closing on as ``mono_icl`` builds its ``Tracker``, with
+    ``lm.optimize_pose`` replaced by ``pose_fn``; every call's outputs are
+    kept.  Returns the calls, the tracked calls, the change in
+    ``lm.pose_graph_counts()``, the seconds and the tracker."""
+    from tpuslam_torch.graph import lm
+
+    calls, dispatcher = [], lm.optimize_pose
+
+    def recorded(*a, **k):
+        out = pose_fn(*a, **k)
+        calls.append(tuple(t.clone() for t in out))
+        return out
+
+    before = lm.pose_graph_counts()
+    lm.optimize_pose = recorded
+    try:
+        t0 = time.perf_counter()
+        _, tr = golden.run_golden(POSE_GRAPH_FRAMES, dev, rendered=rendered, flagship=flagship, loops=True)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        lm.optimize_pose = dispatcher
+    after = lm.pose_graph_counts()
+    return {"calls": calls, "tracked": tr.spans.count.get("frame_motion", 0), "seconds": seconds,
+            "counts": {k: after[k] - before[k] for k in after}, "tracker": tr}
+
+
+def pose_graph_phase(golden, dev, work, gold_rendered, read_launches, reset_launches):
+    """Phase 23: the pose LM as CUDA graphs against its eager body.  One
+    session of points only (phase 7's frames) and one of the flagship, loop
+    closing on in both as in the benchmark's configurations, with the graphs
+    and with ``lm._optimize_pose_body`` called directly: every pose-LM
+    call's pose, inlier mask and count, the returned poses and the final map
+    equal bit for bit; 3 replays and no eager call per tracked call.  Over
+    the whole process: no call on the card ran the eager body, no capture
+    failed, one capture per graph.  Then the 560-frame golden CLI replays
+    (``mono_icl``, flagship and points only, loops on) must read their known
+    raw ATE (``GOLDEN_560_RAW_ATE_M``).  Returns (the ``pose_graph`` line,
+    the launches of every run summed)."""
+    import contextlib
+    import io
+
+    from tpuslam_torch.apps import mono_icl
+    from tpuslam_torch.graph import lm
+    from tpuslam_torch.io import synth
+
+    cspec, cfg = golden.golden_setup(flagship=True)
+    sources = {"points": (gold_rendered, False),
+               "flagship": (golden.render_golden(POSE_GRAPH_FRAMES, cspec, dev, cfg), True)}
+    line, launches = {}, Counter()
+    for name, (rendered, flagship) in sources.items():
+        tag = f"pose graph {name}"
+        runs = {}
+        for mode, fn in (("graph", lm.optimize_pose), ("eager", lm._optimize_pose_body)):
+            reset_launches()
+            runs[mode] = pose_graph_session(golden, dev, rendered, flagship, fn)
+            launches.update(read_launches())
+        g, e = runs["graph"], runs["eager"]
+        n = len(g["calls"])
+        check(g["tracked"] > 0 and n == len(e["calls"]) == 3 * g["tracked"],
+              f"{tag}: {n} and {len(e['calls'])} pose-LM calls, 3 for each of {g['tracked']} tracked calls")
+        check(all(torch.equal(a, b) for ca, cb in zip(g["calls"], e["calls"]) for a, b in zip(ca, cb)),
+              f"{tag}: every call's pose, inlier mask and inlier count equal bit for bit, graph and eager")
+        tg, te = g["tracker"], e["tracker"]
+        check(len(tg.trajectory) > 0 and first_split(tg.trajectory, te.trajectory) is None,
+              f"{tag}: {len(tg.trajectory)} returned poses equal bit for bit")
+        check(same_map(tg.map, te.map), f"{tag}: the final maps equal bit for bit, field by field")
+        gc = g["counts"]
+        check(gc["replays"] == 3 * g["tracked"] and gc["eager"] == 0 and gc["captures"] <= 1,
+              f"{tag}: graph session {gc}: 3 replays and 0 eager for each of {g['tracked']} tracked calls")
+        check(not any(e["counts"].values()), f"{tag}: the eager session ran no graph ({e['counts']})")
+        line[name] = {"tracked_calls": g["tracked"], "pose_calls": n, "graph_counts": gc,
+                      "graph_s": g["seconds"], "eager_s": e["seconds"],
+                      "graph_frames_per_s": POSE_GRAPH_FRAMES / g["seconds"],
+                      "eager_frames_per_s": POSE_GRAPH_FRAMES / e["seconds"]}
+    totals = lm.pose_graph_counts()
+    failed = sum(v is None for v in lm._POSE_GRAPHS.values())
+    check(totals["fallbacks"] == 0 and failed == 0 and totals["captures"] == len(lm._POSE_GRAPHS),
+          f"this process: no pose-LM call on the card ran the eager body, no capture failed, one capture "
+          f"per graph ({totals}; {len(lm._POSE_GRAPHS)} signatures, {failed} failed)")
+    line["process_counts"] = totals
+
+    folder = os.path.join(work, "golden_560")
+    t0 = time.perf_counter()
+    synth.write_sequence(folder, n_frames=golden.GOLDEN_FRAMES, total_angle_deg=golden.GOLDEN_ANGLE_DEG,
+                         device=dev)
+    line["golden_write_s"] = time.perf_counter() - t0
+    for name, extra in (("flagship", ["--planes", "--objects"]), ("points", [])):
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # keep stdout to the phase's lines
+            rep = mono_icl.main([folder, "--out", os.path.join(work, f"golden_560_{name}"), "--device", str(dev),
+                                 *extra])
+        wall = time.perf_counter() - t0
+        launches.update(read_launches())
+        raw, want = rep.get("ate_rmse_raw_m"), GOLDEN_560_RAW_ATE_M[name]
+        line[f"golden_560_{name}"] = {"tracked": rep.get("tracked"), "keyframes_created": rep.get("keyframes_created"),
+                                      "loops": rep.get("loops"), "frames_per_s": golden.GOLDEN_FRAMES / wall,
+                                      "ate_raw_m": raw}
+        check(raw is not None and round(raw, 7) == want,
+              f"{name} 560-frame CLI replay: raw ATE {raw} m reads {want} m to 7 digits")
+    print("pose_graph " + json.dumps(line), flush=True)
+    return line, dict(launches)
+
+
 def rank_main(argv) -> int:
     """Rank mode, started by :func:`run_ranks`: join the gloo group on
     ``cuda:0`` and run one rank of phase 17 (``--phase ba``) or 18
@@ -2405,9 +2530,16 @@ def main() -> int:
         print(f"launches: feature-level replays {launches_feat}", flush=True)
         k2_err = max(k2_err, k2_feat)
         phase_s["feature_replay"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+
+        # --- 23. the pose LM as CUDA graphs against its eager body ------------------------
+        pose_graph, launches_pg = pose_graph_phase(golden, dev, work, gold_rendered, read_launches,
+                                                   reset_launches)
+        print(f"launches: pose graph sessions and golden CLI replays {launches_pg}", flush=True)
+        phase_s["pose_graph"] = time.perf_counter() - t_phase
         print("phase seconds " + json.dumps(phase_s), flush=True)
 
-    # --- 23. report -------------------------------------------------------------
+    # --- 24. report -------------------------------------------------------------
     print(json.dumps({
         "slice_frames_per_s": fps, "slice_seconds": dt, "frames": n_frames,
         "median_n_final": float(np.median(n_final)), "final_x_m": x_last, "expected_x_m": x_expect,
@@ -2426,7 +2558,7 @@ def main() -> int:
         "rgbd_cli_frames_per_s": depth_lines["rgbd_cli"]["frames_per_s"],
         "stereo_cli_frames_per_s": depth_lines["stereo_cli"]["frames_per_s"],
         "dist_ba": dist_ba, "pipeline_frames_per_s": pipe["frames_per_s"], "stream_frames_per_s": stream["frames_per_s"],
-        "ba_order": ba_order, "diagnostics": diag, "feature_replay": feat,
+        "ba_order": ba_order, "diagnostics": diag, "feature_replay": feat, "pose_graph": pose_graph,
         **loop, "phase_s": phase_s, "total_s": sum(phase_s.values()),
     }))
     kernels = [
@@ -2434,7 +2566,8 @@ def main() -> int:
          "launches": sum(n[name] for n in (launches, launches_small, launches_golden, launches_flag,
                                            launches_rgbd, launches_ster, launches_reloc, launches_loops,
                                            launches_cli, launches_loc, *launches_depth.values(), launches_pipe,
-                                           launches_stream, launches_repeat, launches_diag, launches_feat)),
+                                           launches_stream, launches_repeat, launches_diag, launches_feat,
+                                           launches_pg)),
          "max_abs_err": err, **k}
         for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
     ]

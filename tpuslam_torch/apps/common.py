@@ -26,6 +26,7 @@ from ..core import geometry as geo
 from ..core.camera import Camera
 from ..core.config import SlamConfig
 from ..frontend.tracking import Frame, Tracker
+from ..graph import lm
 from ..io.datasets import load_settings_yaml
 from ..io.trajectory import ate_rmse, save_cuboids, save_kitti, save_planes, save_tum
 from ..kernels.orb import OrbExtractor
@@ -358,7 +359,9 @@ def finish(tracker: Tracker, times: LoopTimes, gt=None, out_dir: str = "", metri
     ``kf_stage_ms`` (``kf_*``, ``map_*`` and the loop closer's as
     ``loop_*``), the frame program's and the host waits' ms per tracked
     frame ``frame_stage_ms`` (``frame_*``, ``wait_*``; a tracked frame is
-    one run of the frame program), and with ``gt``
+    one run of the frame program), the process's pose-LM calls by path
+    ``pose_graph`` (``graph/lm.py:pose_graph_counts``: CUDA graphs captured,
+    graph replays, eager calls, eager calls on a card), and with ``gt``
     (world->camera poses by frame id) the ATE of the corrected, the raw and
     the live keyframe trajectories, Sim3-aligned, or with ``metric`` (the
     depth sensors' metric maps) SE3-aligned without scale (common.py:365,
@@ -416,6 +419,7 @@ def finish(tracker: Tracker, times: LoopTimes, gt=None, out_dir: str = "", metri
         "kf_stage_ms": {k: v / n_created for k, v in sorted(stage_ms.items())},
         "frame_stage_ms": {k: v / n_tracked for k, v in sorted(tracker.stage_ms.items())
                            if k.startswith(per_frame)},
+        "pose_graph": lm.pose_graph_counts(),
         "relocalized": tracker.n_relocalized,
         "vo_frames": tracker.n_vo,
     }

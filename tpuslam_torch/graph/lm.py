@@ -15,16 +15,27 @@ device on every iteration, so here each round runs all its iterations and an
 iteration whose round has converged changes nothing: ``T``, ``lam`` and the
 step norm are frozen where ``active = dn > 1e-6`` is false.  The result is
 that of the early exit.
+
+On a CUDA device ``optimize_pose`` runs the whole LM as one CUDA graph per
+input signature (:func:`pose_graph_key`): the first call of a signature
+captures the eager body, :func:`_optimize_pose_body`, into static buffers;
+every call copies its inputs into them, replays the graph on the current
+stream and returns copies of the outputs.  The replay issues the kernels
+the body issues, with the same arguments, in the same order.  CPU tensors
+run the body eagerly.  :func:`pose_graph_counts` says which way the calls
+went.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..core import geometry as geo
+from ..utils.profiler import Spans
 from . import factors as fac
 from .schur import schur_solve
 
@@ -58,7 +69,155 @@ def optimize_pose(
     with inliers re-classified by chi2 between rounds.  Observations with
     ``ur >= 0`` add the stereo row, gated at ``chi2_th_stereo``.
 
-    Returns (T_opt (4, 4), inlier mask (N,), n_inliers () int32)."""
+    Returns (T_opt (4, 4), inlier mask (N,), n_inliers () int32), tensors
+    of the caller's own (never a graph's static buffer).
+
+    CUDA tensors replay the signature's CUDA graph (captured at its first
+    call), on the inputs' device whichever device is current; CPU tensors,
+    a stream that is itself capturing, constants that are not Python
+    numbers, inputs on more than one device, and a signature whose capture
+    failed run the eager body.  Either way the result is the body's."""
+    tensors = (T_init, points, uv, inv_sigma2, valid, ur)
+    consts = (fx, fy, cx, cy, chi2_th, rounds, iters_per_round, bf, chi2_th_stereo)
+    if points.device.type != "cuda":
+        _POSE_GRAPH_COUNTS["eager"] += 1
+        return _run_body(tensors, consts)
+    # streams, capture and replay act on the current device: make it the inputs'
+    with torch.cuda.device(points.device):
+        key = None if torch.cuda.is_current_stream_capturing() else pose_graph_key(tensors, consts)
+        if key is not None and key not in _POSE_GRAPHS:
+            _POSE_GRAPHS[key] = _capture_pose_graph(tensors, consts)
+        entry = _POSE_GRAPHS.get(key)
+        if entry is None:
+            _POSE_GRAPH_COUNTS["eager"] += 1
+            _POSE_GRAPH_COUNTS["fallbacks"] += 1
+            return _run_body(tensors, consts)
+        for buf, t in zip(entry.inputs, tensors):
+            if t is not None:
+                buf.copy_(t)
+        entry.graph.replay()
+        _POSE_GRAPH_COUNTS["replays"] += 1
+        return tuple(o.clone() for o in entry.outputs)
+
+
+class _PoseGraph(NamedTuple):
+    graph: object  # torch.cuda.CUDAGraph
+    inputs: tuple  # static (T_init, points, uv, inv_sigma2, valid, ur or None)
+    outputs: tuple  # static (T_opt, inlier mask, n_inliers)
+
+
+# per-process cache: pose_graph_key -> _PoseGraph, or None once its capture failed
+_POSE_GRAPHS: dict = {}
+_POSE_GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager": 0, "fallbacks": 0}
+# per device: the stream every pose graph is captured on
+_CAPTURE_STREAMS: dict = {}
+
+
+def pose_graph_counts() -> dict:
+    """``optimize_pose`` calls so far in this process: graphs captured
+    (``captures``), calls that replayed one (``replays``), calls that ran
+    the eager body (``eager``: CPU tensors and every fallback), and of
+    those the calls on a CUDA device (``fallbacks``: a capturing stream,
+    constants that are not numbers, a signature whose capture failed)."""
+    return dict(_POSE_GRAPH_COUNTS)
+
+
+def pose_graph_key(tensors, consts):
+    """What a captured graph of ``optimize_pose`` is specific to: the device,
+    each tensor input's shape, strides and dtype (``None`` for an absent
+    ``ur``), and the constants (camera, thresholds, trip counts), which the
+    graph holds as kernel arguments.  None where a constant is not a Python
+    number or an input lies on another device: the graph cannot stand for
+    the call."""
+    dev = tensors[1].device
+    if not all(isinstance(c, (int, float)) for c in consts) or any(
+            t is not None and t.device != dev for t in tensors):
+        return None
+    sig = tuple(None if t is None else (tuple(t.shape), t.stride(), t.dtype) for t in tensors)
+    return (dev, *sig, *consts)
+
+
+def _capture_pose_graph(tensors, consts):
+    """Capture :func:`_optimize_pose_body` on static copies of ``tensors``,
+    on the current device: one eager warm-up on the device's capture stream
+    (library handles and workspaces), then the capture on that stream into
+    the memory pool of the device's live pose graphs (a new pool for the
+    first).  The host never waits on the device here.  Returns the cache
+    entry, or None (with a warning) if the capture raised or recorded no
+    work."""
+    cur = torch.cuda.current_stream()
+    if cur.device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[cur.device] = torch.cuda.Stream()
+    side = _CAPTURE_STREAMS[cur.device]
+    # a pool lives as long as a graph that uses it, so it is taken from one
+    pool = next((e.graph.pool() for k, e in _POSE_GRAPHS.items() if e is not None and k[0] == cur.device), None)
+    inputs = tuple(None if t is None else torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                                                device=t.device).copy_(t)
+                   for t in tensors)
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for _graph_nodes
+        with Spans().span("pose_graph_capture"):
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                _run_body(inputs, consts)
+                # thread_local: the stream node and the prefetching loader
+                # launch work from other threads during the capture
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    outputs = _run_body(inputs, consts)
+                finally:
+                    graph.capture_end()
+            if _graph_nodes(graph) == 0:
+                raise RuntimeError("the capture recorded no work")
+            graph.instantiate()
+    except Exception as e:  # any failure to capture falls back to the eager body
+        warnings.warn(f"optimize_pose: CUDA graph capture failed, running the eager body: {e!r}")
+        return None
+    finally:
+        cur.wait_stream(side)
+    _POSE_GRAPH_COUNTS["captures"] += 1
+    return _PoseGraph(graph, inputs, outputs)
+
+
+def _graph_nodes(graph) -> int:
+    """Nodes of a captured graph kept with ``keep_graph=True``, as the
+    driver counts them."""
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                                                     ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes returned CUresult {rc}")
+    return n.value
+
+
+def _run_body(tensors, consts):
+    T_init, points, uv, inv_sigma2, valid, ur = tensors
+    fx, fy, cx, cy, chi2_th, rounds, iters_per_round, bf, chi2_th_stereo = consts
+    return _optimize_pose_body(T_init, points, uv, inv_sigma2, valid, fx, fy, cx, cy, chi2_th, rounds,
+                               iters_per_round, ur, bf, chi2_th_stereo)
+
+
+def _optimize_pose_body(
+    T_init,
+    points,
+    uv,
+    inv_sigma2,
+    valid,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    chi2_th: float = 5.991,
+    rounds: int = 4,
+    iters_per_round: int = 10,
+    ur=None,
+    bf: float = 0.0,
+    chi2_th_stereo: float = 7.815,
+):
+    """The eager LM of :func:`optimize_pose`, the body its CUDA graphs
+    capture: no host read, fixed shapes and trip counts."""
     T_init = geo.se3_renorm(T_init)
     n = points.shape[0]
     dev, dt = points.device, points.dtype
