@@ -214,14 +214,16 @@ In order, it
      planes and cuboids within 2, plane and bbox factors live in the RGB-D
      BA; K1 launched 0 times (no image), K2 once per tracked frame and held
      to its plain version at each run's 1024 x 1024 shapes;
- 23. the pose LM as CUDA graphs (``graph/lm.py:optimize_pose``): one
-     60-frame session of points only and one of the flagship, loop
-     closing on (``apps/golden.run_golden``), with the graphs and with the
-     eager body (``lm._optimize_pose_body``): every pose-LM call's pose,
-     inlier mask and count, the returned poses and the final maps equal bit
-     for bit; 3 graph replays and no eager call per tracked call; over the
-     process no eager call on the card, no failed capture and one capture
-     per signature; then the 560-frame golden CLI replays (``mono_icl``,
+ 23. the pose LM and the local BA as CUDA graphs (``graph/lm.py:
+     optimize_pose``, ``local_ba``): one 60-frame session of points only
+     and one of the flagship, loop closing on (``apps/golden.run_golden``),
+     with the graphs and with the eager bodies (``lm._optimize_pose_body``,
+     ``lm._local_ba_body``): every pose-LM call's pose, inlier mask and
+     count, every local BA's state, gated factors and chi2s, the returned
+     poses and the final maps equal bit for bit; 3 pose-LM replays per
+     tracked call, one BA replay per local BA and no eager call; over the
+     process no eager call of either on the card, no failed capture and one
+     capture per signature; then the 560-frame golden CLI replays (``mono_icl``,
      flagship and points only, loops on) read their known raw ATE
      (``GOLDEN_560_RAW_ATE_M``); a ``pose_graph`` line;
  24. prints each phase's seconds, the slice's frames/s, the device ms of
@@ -2078,44 +2080,64 @@ POSE_GRAPH_FRAMES = 60
 GOLDEN_560_RAW_ATE_M = {"flagship": 0.3293508, "points": 0.1493258}
 
 
-def pose_graph_session(golden, dev, rendered, flagship, pose_fn):
+def same_bits(a, b) -> bool:
+    """Two tensors equal bit for bit (NaNs and signed zeros count), or both None."""
+    if a is None or b is None:
+        return a is b
+    def raw(t):
+        return t.reshape(-1).contiguous().view(torch.uint8)
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(raw(a), raw(b))
+
+
+def pose_graph_session(golden, dev, rendered, flagship, pose_fn, ba_fn):
     """One of phase 23's sessions: ``golden.run_golden`` over the first
     ``POSE_GRAPH_FRAMES`` of ``rendered``, points only or the flagship, loop
     closing on as ``mono_icl`` builds its ``Tracker``, with
-    ``lm.optimize_pose`` replaced by ``pose_fn``; every call's outputs are
-    kept.  Returns the calls, the tracked calls, the change in
-    ``lm.pose_graph_counts()``, the seconds and the tracker."""
+    ``lm.optimize_pose`` replaced by ``pose_fn`` and ``lm.local_ba`` by
+    ``ba_fn``; every call's outputs are kept (a local BA's as its state's
+    and data's tensors and its chi2s).  Returns the pose-LM calls, the local
+    BA calls, the tracked calls, the change in ``lm.pose_graph_counts()``
+    and in ``lm.ba_graph_counts()``, the seconds and the tracker."""
     from tpuslam_torch.graph import lm
 
-    calls, dispatcher = [], lm.optimize_pose
+    calls, ba_calls, dispatchers = [], [], (lm.optimize_pose, lm.local_ba)
 
     def recorded(*a, **k):
         out = pose_fn(*a, **k)
         calls.append(tuple(t.clone() for t in out))
         return out
 
-    before = lm.pose_graph_counts()
-    lm.optimize_pose = recorded
+    def recorded_ba(*a, **k):
+        state, data, chi2s = ba_fn(*a, **k)
+        ba_calls.append(tuple(None if t is None else t.clone() for t in (*lm._ba_leaves(state, data), chi2s)))
+        return state, data, chi2s
+
+    before, before_ba = lm.pose_graph_counts(), lm.ba_graph_counts()
+    lm.optimize_pose, lm.local_ba = recorded, recorded_ba
     try:
         t0 = time.perf_counter()
         _, tr = golden.run_golden(POSE_GRAPH_FRAMES, dev, rendered=rendered, flagship=flagship, loops=True)
         torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0
     finally:
-        lm.optimize_pose = dispatcher
-    after = lm.pose_graph_counts()
-    return {"calls": calls, "tracked": tr.spans.count.get("frame_motion", 0), "seconds": seconds,
-            "counts": {k: after[k] - before[k] for k in after}, "tracker": tr}
+        lm.optimize_pose, lm.local_ba = dispatchers
+    after, after_ba = lm.pose_graph_counts(), lm.ba_graph_counts()
+    return {"calls": calls, "ba_calls": ba_calls, "tracked": tr.spans.count.get("frame_motion", 0),
+            "seconds": seconds, "counts": {k: after[k] - before[k] for k in after},
+            "ba_counts": {k: after_ba[k] - before_ba[k] for k in after_ba}, "tracker": tr}
 
 
 def pose_graph_phase(golden, dev, work, gold_rendered, read_launches, reset_launches):
-    """Phase 23: the pose LM as CUDA graphs against its eager body.  One
-    session of points only (phase 7's frames) and one of the flagship, loop
-    closing on in both as in the benchmark's configurations, with the graphs
-    and with ``lm._optimize_pose_body`` called directly: every pose-LM
-    call's pose, inlier mask and count, the returned poses and the final map
-    equal bit for bit; 3 replays and no eager call per tracked call.  Over
-    the whole process: no call on the card ran the eager body, no capture
+    """Phase 23: the pose LM and the local BA as CUDA graphs against their
+    eager bodies.  One session of points only (phase 7's frames) and one of
+    the flagship, loop closing on in both as in the benchmark's
+    configurations, with the graphs and with ``lm._optimize_pose_body`` and
+    ``lm._local_ba_body`` called directly: every pose-LM call's pose,
+    inlier mask and count, every local BA's state, gated data and chi2s,
+    the returned poses and the final map equal bit for bit; 3 pose replays
+    a tracked call, one BA replay a local BA, and no eager call.  Over the
+    whole process: no call on the card ran an eager body, no capture
     failed, one capture per graph.  Then the 560-frame golden CLI replays
     (``mono_icl``, flagship and points only, loops on) must read their known
     raw ATE (``GOLDEN_560_RAW_ATE_M``).  Returns (the ``pose_graph`` line,
@@ -2132,36 +2154,46 @@ def pose_graph_phase(golden, dev, work, gold_rendered, read_launches, reset_laun
                "flagship": (golden.render_golden(POSE_GRAPH_FRAMES, cspec, dev, cfg), True)}
     line, launches = {}, Counter()
     for name, (rendered, flagship) in sources.items():
-        tag = f"pose graph {name}"
+        tag = f"graphs {name}"
         runs = {}
-        for mode, fn in (("graph", lm.optimize_pose), ("eager", lm._optimize_pose_body)):
+        for mode, fns in (("graph", (lm.optimize_pose, lm.local_ba)),
+                          ("eager", (lm._optimize_pose_body, lm._local_ba_body))):
             reset_launches()
-            runs[mode] = pose_graph_session(golden, dev, rendered, flagship, fn)
+            runs[mode] = pose_graph_session(golden, dev, rendered, flagship, *fns)
             launches.update(read_launches())
         g, e = runs["graph"], runs["eager"]
-        n = len(g["calls"])
+        n, n_ba = len(g["calls"]), len(g["ba_calls"])
         check(g["tracked"] > 0 and n == len(e["calls"]) == 3 * g["tracked"],
               f"{tag}: {n} and {len(e['calls'])} pose-LM calls, 3 for each of {g['tracked']} tracked calls")
         check(all(torch.equal(a, b) for ca, cb in zip(g["calls"], e["calls"]) for a, b in zip(ca, cb)),
               f"{tag}: every call's pose, inlier mask and inlier count equal bit for bit, graph and eager")
+        check(n_ba > 0 and n_ba == len(e["ba_calls"]) and all(
+            same_bits(a, b) for ca, cb in zip(g["ba_calls"], e["ba_calls"]) for a, b in zip(ca, cb)),
+              f"{tag}: every one of {n_ba} local BAs' state, gated factors and chi2s equal bit for bit, graph "
+              f"and eager")
         tg, te = g["tracker"], e["tracker"]
         check(len(tg.trajectory) > 0 and first_split(tg.trajectory, te.trajectory) is None,
               f"{tag}: {len(tg.trajectory)} returned poses equal bit for bit")
         check(same_map(tg.map, te.map), f"{tag}: the final maps equal bit for bit, field by field")
-        gc = g["counts"]
+        gc, gb = g["counts"], g["ba_counts"]
         check(gc["replays"] == 3 * g["tracked"] and gc["eager"] == 0 and gc["captures"] <= 1,
               f"{tag}: graph session {gc}: 3 replays and 0 eager for each of {g['tracked']} tracked calls")
-        check(not any(e["counts"].values()), f"{tag}: the eager session ran no graph ({e['counts']})")
-        line[name] = {"tracked_calls": g["tracked"], "pose_calls": n, "graph_counts": gc,
-                      "graph_s": g["seconds"], "eager_s": e["seconds"],
+        check(gb["replays"] == n_ba and gb["eager"] == 0 and gb["captures"] <= 1,
+              f"{tag}: graph session's local BAs {gb}: a replay and no eager call for each of {n_ba}")
+        check(not any(e["counts"].values()) and not any(e["ba_counts"].values()),
+              f"{tag}: the eager session ran no graph ({e['counts']}, {e['ba_counts']})")
+        line[name] = {"tracked_calls": g["tracked"], "pose_calls": n, "local_bas": n_ba, "graph_counts": gc,
+                      "ba_graph_counts": gb, "graph_s": g["seconds"], "eager_s": e["seconds"],
                       "graph_frames_per_s": POSE_GRAPH_FRAMES / g["seconds"],
                       "eager_frames_per_s": POSE_GRAPH_FRAMES / e["seconds"]}
-    totals = lm.pose_graph_counts()
-    failed = sum(v is None for v in lm._POSE_GRAPHS.values())
-    check(totals["fallbacks"] == 0 and failed == 0 and totals["captures"] == len(lm._POSE_GRAPHS),
-          f"this process: no pose-LM call on the card ran the eager body, no capture failed, one capture "
-          f"per graph ({totals}; {len(lm._POSE_GRAPHS)} signatures, {failed} failed)")
-    line["process_counts"] = totals
+    for family, totals, graphs in (("pose-LM", lm.pose_graph_counts(), lm._POSE_GRAPHS),
+                                   ("local BA", lm.ba_graph_counts(), lm._BA_GRAPHS)):
+        failed = sum(v is None for v in graphs.values())
+        check(totals["fallbacks"] == 0 and failed == 0 and totals["captures"] == len(graphs),
+              f"this process: no {family} call on the card ran the eager body, no capture failed, one capture "
+              f"per graph ({totals}; {len(graphs)} signatures, {failed} failed)")
+    line["process_counts"] = lm.pose_graph_counts()
+    line["process_ba_counts"] = lm.ba_graph_counts()
 
     folder = os.path.join(work, "golden_560")
     t0 = time.perf_counter()

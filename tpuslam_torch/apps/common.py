@@ -361,7 +361,8 @@ def finish(tracker: Tracker, times: LoopTimes, gt=None, out_dir: str = "", metri
     frame ``frame_stage_ms`` (``frame_*``, ``wait_*``; a tracked frame is
     one run of the frame program), the process's pose-LM calls by path
     ``pose_graph`` (``graph/lm.py:pose_graph_counts``: CUDA graphs captured,
-    graph replays, eager calls, eager calls on a card), and with ``gt``
+    graph replays, eager calls, eager calls on a card), its local BAs
+    ``ba_graph`` (``lm.ba_graph_counts``, the same counts), and with ``gt``
     (world->camera poses by frame id) the ATE of the corrected, the raw and
     the live keyframe trajectories, Sim3-aligned, or with ``metric`` (the
     depth sensors' metric maps) SE3-aligned without scale (common.py:365,
@@ -420,6 +421,7 @@ def finish(tracker: Tracker, times: LoopTimes, gt=None, out_dir: str = "", metri
         "frame_stage_ms": {k: v / n_tracked for k, v in sorted(tracker.stage_ms.items())
                            if k.startswith(per_frame)},
         "pose_graph": lm.pose_graph_counts(),
+        "ba_graph": lm.ba_graph_counts(),
         "relocalized": tracker.n_relocalized,
         "vo_frames": tracker.n_vo,
     }

@@ -16,26 +16,27 @@ iteration whose round has converged changes nothing: ``T``, ``lam`` and the
 step norm are frozen where ``active = dn > 1e-6`` is false.  The result is
 that of the early exit.
 
-On a CUDA device ``optimize_pose`` runs the whole LM as one CUDA graph per
-input signature (:func:`pose_graph_key`): the first call of a signature
-captures the eager body, :func:`_optimize_pose_body`, into static buffers;
-every call copies its inputs into them, replays the graph on the current
-stream and returns copies of the outputs.  The replay issues the kernels
-the body issues, with the same arguments, in the same order.  CPU tensors
-run the body eagerly.  :func:`pose_graph_counts` says which way the calls
-went.
+On a CUDA device ``optimize_pose`` runs the whole LM, and ``local_ba`` both
+its phases, as one CUDA graph per input signature (:func:`pose_graph_key`,
+:func:`ba_graph_key`; ``utils/cuda_graph.py``): the first call of a
+signature captures the eager body, :func:`_optimize_pose_body` or
+:func:`_local_ba_body`, into static buffers; every call copies its inputs
+into them, replays the graph on the current stream and returns copies of
+the outputs.  The replay issues the kernels the body issues, with the same
+arguments, in the same order.  CPU tensors run the body eagerly.
+:func:`pose_graph_counts` and :func:`ba_graph_counts` say which way the
+calls went.
 """
 
 from __future__ import annotations
 
-import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..core import geometry as geo
-from ..utils.profiler import Spans
+from ..utils import cuda_graph
 from . import factors as fac
 from .schur import schur_solve
 
@@ -79,38 +80,13 @@ def optimize_pose(
     failed run the eager body.  Either way the result is the body's."""
     tensors = (T_init, points, uv, inv_sigma2, valid, ur)
     consts = (fx, fy, cx, cy, chi2_th, rounds, iters_per_round, bf, chi2_th_stereo)
-    if points.device.type != "cuda":
-        _POSE_GRAPH_COUNTS["eager"] += 1
-        return _run_body(tensors, consts)
-    # streams, capture and replay act on the current device: make it the inputs'
-    with torch.cuda.device(points.device):
-        key = None if torch.cuda.is_current_stream_capturing() else pose_graph_key(tensors, consts)
-        if key is not None and key not in _POSE_GRAPHS:
-            _POSE_GRAPHS[key] = _capture_pose_graph(tensors, consts)
-        entry = _POSE_GRAPHS.get(key)
-        if entry is None:
-            _POSE_GRAPH_COUNTS["eager"] += 1
-            _POSE_GRAPH_COUNTS["fallbacks"] += 1
-            return _run_body(tensors, consts)
-        for buf, t in zip(entry.inputs, tensors):
-            if t is not None:
-                buf.copy_(t)
-        entry.graph.replay()
-        _POSE_GRAPH_COUNTS["replays"] += 1
-        return tuple(o.clone() for o in entry.outputs)
+    return cuda_graph.run(_run_body, tensors, consts, points.device, _POSE_GRAPHS, _POSE_GRAPH_COUNTS,
+                          "optimize_pose", "pose_graph_capture")
 
 
-class _PoseGraph(NamedTuple):
-    graph: object  # torch.cuda.CUDAGraph
-    inputs: tuple  # static (T_init, points, uv, inv_sigma2, valid, ur or None)
-    outputs: tuple  # static (T_opt, inlier mask, n_inliers)
-
-
-# per-process cache: pose_graph_key -> _PoseGraph, or None once its capture failed
+# per-process cache: pose_graph_key -> cuda_graph.Graph, or None once its capture failed
 _POSE_GRAPHS: dict = {}
-_POSE_GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager": 0, "fallbacks": 0}
-# per device: the stream every pose graph is captured on
-_CAPTURE_STREAMS: dict = {}
+_POSE_GRAPH_COUNTS = cuda_graph.new_counts()
 
 
 def pose_graph_counts() -> dict:
@@ -129,67 +105,7 @@ def pose_graph_key(tensors, consts):
     graph holds as kernel arguments.  None where a constant is not a Python
     number or an input lies on another device: the graph cannot stand for
     the call."""
-    dev = tensors[1].device
-    if not all(isinstance(c, (int, float)) for c in consts) or any(
-            t is not None and t.device != dev for t in tensors):
-        return None
-    sig = tuple(None if t is None else (tuple(t.shape), t.stride(), t.dtype) for t in tensors)
-    return (dev, *sig, *consts)
-
-
-def _capture_pose_graph(tensors, consts):
-    """Capture :func:`_optimize_pose_body` on static copies of ``tensors``,
-    on the current device: one eager warm-up on the device's capture stream
-    (library handles and workspaces), then the capture on that stream into
-    the memory pool of the device's live pose graphs (a new pool for the
-    first).  The host never waits on the device here.  Returns the cache
-    entry, or None (with a warning) if the capture raised or recorded no
-    work."""
-    cur = torch.cuda.current_stream()
-    if cur.device not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[cur.device] = torch.cuda.Stream()
-    side = _CAPTURE_STREAMS[cur.device]
-    # a pool lives as long as a graph that uses it, so it is taken from one
-    pool = next((e.graph.pool() for k, e in _POSE_GRAPHS.items() if e is not None and k[0] == cur.device), None)
-    inputs = tuple(None if t is None else torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                                                device=t.device).copy_(t)
-                   for t in tensors)
-    try:
-        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for _graph_nodes
-        with Spans().span("pose_graph_capture"):
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                _run_body(inputs, consts)
-                # thread_local: the stream node and the prefetching loader
-                # launch work from other threads during the capture
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    outputs = _run_body(inputs, consts)
-                finally:
-                    graph.capture_end()
-            if _graph_nodes(graph) == 0:
-                raise RuntimeError("the capture recorded no work")
-            graph.instantiate()
-    except Exception as e:  # any failure to capture falls back to the eager body
-        warnings.warn(f"optimize_pose: CUDA graph capture failed, running the eager body: {e!r}")
-        return None
-    finally:
-        cur.wait_stream(side)
-    _POSE_GRAPH_COUNTS["captures"] += 1
-    return _PoseGraph(graph, inputs, outputs)
-
-
-def _graph_nodes(graph) -> int:
-    """Nodes of a captured graph kept with ``keep_graph=True``, as the
-    driver counts them."""
-    import ctypes
-
-    n = ctypes.c_size_t(0)
-    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
-                                                     ctypes.byref(n))
-    if rc != 0:
-        raise RuntimeError(f"cuGraphGetNodes returned CUresult {rc}")
-    return n.value
+    return cuda_graph.signature_key(tensors[1].device, tensors, consts)
 
 
 def _run_body(tensors, consts):
@@ -1053,7 +969,90 @@ def local_ba(state: BAState, data: BAData, w: BAWeights, phase1_iters: int = 5, 
     """Two-phase local BA (LocalBundleAdjustment, Optimizer.cc:461-786):
     optimize, gate outliers, optimize again, gate again; ``reproj_n`` as in
     :func:`lm_iterations`.  Returns (state, data with the final gate,
-    phase-2 chi2s)."""
+    phase-2 chi2s), tensors of the caller's own: the fields the gate left
+    alone are the caller's own inputs, never a graph's static buffer.
+
+    CUDA tensors replay the signature's CUDA graph of both phases (captured
+    at its first call; :func:`ba_graph_key`), on the inputs' device
+    whichever device is current; CPU tensors, a stream that is itself
+    capturing, constants that are not Python numbers, inputs on more than
+    one device, and a signature whose capture failed run the eager body,
+    :func:`_local_ba_body`.  Either way the result is the body's."""
+    consts = _ba_consts(data, w, phase1_iters, phase2_iters, reproj_n)
+    out = cuda_graph.run(_run_ba_body, _ba_leaves(state, data), consts, state.points.device, _BA_GRAPHS,
+                         _BA_GRAPH_COUNTS, "local_ba", "ba_graph_capture")
+    state_out, data_out = _ba_from_leaves(out[:-1], consts[:len(_BA_CAMERA)])
+    return state_out, data_out, out[-1]
+
+
+# per-process cache: ba_graph_key -> cuda_graph.Graph, or None once its capture failed
+_BA_GRAPHS: dict = {}
+_BA_GRAPH_COUNTS = cuda_graph.new_counts()
+# BAData's Python numbers, and its optional bundles with their factor types
+_BA_CAMERA = ("fx", "fy", "cx", "cy", "bf", "cuboid_fix_scale")
+_BA_GAUGES = ("pose_fixed", "point_active", "plane_active", "cuboid_active")
+_BA_SLOTS = (("stereo", StereoFactors), *BUNDLES.items())
+
+
+def ba_graph_counts() -> dict:
+    """``local_ba`` calls so far in this process, by path, as
+    :func:`pose_graph_counts` gives the pose LM's."""
+    return dict(_BA_GRAPH_COUNTS)
+
+
+def ba_graph_key(state: BAState, data: BAData, w: BAWeights, phase1_iters: int = 5, phase2_iters: int = 10,
+                 reproj_n: int = 0):
+    """What a captured graph of ``local_ba`` is specific to: the device, each
+    tensor of ``state`` and ``data`` by shape, strides and dtype (``None``
+    for each field of an absent bundle), the camera, ``cuboid_fix_scale``,
+    every weight, both phases' iterations and ``reproj_n``.  None where one
+    of those constants is not a Python number or an input lies on another
+    device than ``state.points``."""
+    return cuda_graph.signature_key(state.points.device, _ba_leaves(state, data),
+                                    _ba_consts(data, w, phase1_iters, phase2_iters, reproj_n))
+
+
+def _ba_consts(data: BAData, w: BAWeights, phase1_iters, phase2_iters, reproj_n) -> tuple:
+    return (*(getattr(data, k) for k in _BA_CAMERA), *w, phase1_iters, phase2_iters, reproj_n)
+
+
+def _ba_leaves(state: BAState, data: BAData) -> tuple:
+    """The tensors of ``state`` and ``data`` in a fixed layout: an absent
+    bundle gives one None per field."""
+    out = [*state, *(getattr(data, k) for k in _BA_GAUGES), *data.mono]
+    for k, cls in _BA_SLOTS:
+        b = getattr(data, k)
+        out.extend((None,) * len(cls._fields) if b is None else b)
+    return tuple(out)
+
+
+def _ba_from_leaves(leaves, camera):
+    """(state, data) back from :func:`_ba_leaves`' layout and the camera's
+    numbers."""
+    it = iter(leaves)
+
+    def take(cls):
+        fields = [next(it) for _ in cls._fields]
+        return None if fields[0] is None else cls(*fields)
+
+    state = take(BAState)
+    gauges = {k: next(it) for k in _BA_GAUGES}
+    mono = take(MonoFactors)
+    bundles = {k: take(cls) for k, cls in _BA_SLOTS}
+    return state, BAData(**gauges, mono=mono, **dict(zip(_BA_CAMERA, camera)), **bundles)
+
+
+def _run_ba_body(leaves, consts):
+    n = len(_BA_CAMERA)
+    camera, w, iters = consts[:n], BAWeights(*consts[n:-3]), consts[-3:]
+    state, data, chi2s = _local_ba_body(*_ba_from_leaves(leaves, camera), w, *iters)
+    return (*_ba_leaves(state, data), chi2s)
+
+
+def _local_ba_body(state: BAState, data: BAData, w: BAWeights, phase1_iters: int = 5, phase2_iters: int = 10,
+                   reproj_n: int = 0):
+    """The eager two-phase local BA of :func:`local_ba`, the body its CUDA
+    graphs capture: no host read, fixed shapes and trip counts."""
     state, _ = lm_iterations(state, data, w, phase1_iters, reproj_n=reproj_n)
     data = gate_observations(state, data, w)
     state, chi2s = lm_iterations(state, data, w, phase2_iters, reproj_n=reproj_n)
