@@ -15,7 +15,7 @@ In order, it
      (3, 37, 45) array; after phases 6 and 7, the first frame's pyramid of
      each replay with its Tracker's live level sizes ((8, 240, 320) and
      (8, 480, 640)).  The arrays must be equal (max |err| 0) with the same
-     number of corners;
+     number of corners, and frame 0's plain map must hold corners;
   4. holds kernel K2 (Hamming top-2) against its plain version on frame 0's
      and frame 1's descriptors against keyframe 0's (1024 x 1024), random
      4096 x 4096 and 1000 x 777 with ~20% invalid columns, M = 1, all
@@ -48,8 +48,7 @@ In order, it
      replays them (640x480, 1024 features, default capacities, loops off)
      through ``run_loop`` and ``Tracker`` and prints a ``golden`` line: frames
      tracked, keyframes, live points, raw / corrected / keyframe ATE,
-     frames/s, the per-keyframe stage ms and the host waits per hot-path,
-     keyframe and initialization frame with their sources.  Gates: the
+     frames/s and the per-keyframe and per-frame stage ms.  Gates: the
      first tracked frame below 40, tracked >= 0.9 x the frames after
      initialization, raw ATE <= 1.5 x the JAX package's + 0.01 m, keyframes
      created within 0.7-1.3 x the JAX package's (``JAX_GOLDEN_100``);
@@ -207,13 +206,13 @@ In order, it
      points only over 120 frames, then RGB-D over 60 with the room's plane
      and cuboid detections and ``rgbd_icl --planes --objects``'s semantic
      flags; ``feature_replay`` lines (phase 7's keys, planes, cuboids,
-     factors per bundle, ``map_ba`` ms per keyframe, host waits per frame
-     kind).  Gates against ``JAX_SYNTHETIC_MONO_120`` and
-     ``JAX_SYNTHETIC_RGBD_60``: phase 7's (mono) or phase 9's (RGB-D)
-     tracking, keyframe and ATE gates, tracked >= 0.9 x the JAX run's,
-     planes and cuboids within 2, plane and bbox factors live in the RGB-D
-     BA; K1 launched 0 times (no image), K2 once per tracked frame and held
-     to its plain version at each run's 1024 x 1024 shapes;
+     factors per bundle, ``map_ba`` ms per keyframe).  Gates against
+     ``JAX_SYNTHETIC_MONO_120`` and ``JAX_SYNTHETIC_RGBD_60``: phase 7's
+     (mono) or phase 9's (RGB-D) tracking, keyframe and ATE gates, tracked
+     >= 0.9 x the JAX run's, planes and cuboids within 2, plane and bbox
+     factors live in the RGB-D BA; K1 launched 0 times (no image), K2
+     once per tracked frame and held to its plain version at each run's
+     1024 x 1024 shapes;
  23. the pose LM and the local BA as CUDA graphs (``graph/lm.py:
      optimize_pose``, ``local_ba``): one 60-frame session of points only
      and one of the flagship, loop closing on (``apps/golden.run_golden``),
@@ -228,9 +227,7 @@ In order, it
      (``GOLDEN_560_RAW_ATE_M``); a ``pose_graph`` line;
  24. prints each phase's seconds, the slice's frames/s, the device ms of
      plane segmentation and of stereo matching per frame (CUDA events
-     around one call), each kernel's device time (launches queued behind a
-     spin, ``kernels/timing.py``) beside its bound and its plain version's
-     host-paced time, then one JSON line of kernels (launches summed over
+     around one call), then one JSON line of kernels (launches summed over
      the paths that run on the card and launch them: the slice,
      the card's small replay, the golden, flagship, RGB-D and stereo
      replays, relocalization, the loops-on replay, the four CLI runs of
@@ -415,26 +412,6 @@ def hold_k1(cases, cuda_fast, orb) -> float:
     return err
 
 
-def time_k1(pyr, dims, cuda_fast, orb, timing):
-    check(int((orb.fast_nms_plain(pyr) > 0).sum()) > 0, "K1 main path has corners")
-    ms = timing.device_ms(lambda: cuda_fast.fast_nms_score(pyr, 20.0, 7.0, dims))
-    # given the live level sizes, the call needs only the live pixels in;
-    # it writes the whole map
-    live_px = int((dims[:, 0] * dims[:, 1]).sum())
-    bound_ms = (live_px + pyr.numel()) * 4 / HBM_BYTES_PER_MS
-    print(f"K1 bound: {live_px} live of {pyr.numel()} pixels read, {bound_ms * 1e3:.3f} us "
-          f"(whole array: {2 * pyr.numel() * 4 / HBM_BYTES_PER_MS * 1e3:.3f} us)", flush=True)
-    return {
-        "ms": ms,
-        # the plain versions allocate as they go, which waits for the device:
-        # their time is the host-paced one
-        "plain_ms": timing.host_paced_ms(lambda: orb.fast_nms_plain(pyr, 20.0, 7.0), reps=10, warmup=2),
-        "bound_ms": bound_ms, "bound_by": "bytes", "bound_kind": "memory",
-        "share_of_bound": bound_ms / ms, "library_ms": None,
-        "host_paced_ms": timing.host_paced_ms(lambda: cuda_fast.fast_nms_score(pyr, 20.0, 7.0, dims)),
-    }
-
-
 def hold_k2(cases, cuda_match) -> float:
     """Each case: (A, B, B's mask).  idx, d1 and d2 equal required."""
     err = 0.0
@@ -445,22 +422,6 @@ def hold_k2(cases, cuda_match) -> float:
         same = torch.equal(idx, ridx) and torch.equal(d1, rd1) and torch.equal(d2, rd2)
         check(same, f"K2 hamming_top2 == plain, {name} {tuple(a.shape)} x {tuple(b.shape)}")
     return err
-
-
-def time_k2(a, b, valid, cuda_match, timing):
-    n, m = a.shape[0], b.shape[0]
-    ops_ms = 2 * n * m * 256 / INT8_OPS_PER_MS  # the +-1 int8 product
-    bytes_ms = (n * 32 + m * 33 + n * 12) / HBM_BYTES_PER_MS
-    ms = timing.device_ms(lambda: cuda_match.hamming_top2(a, b, valid))
-    return {
-        "ms": ms,
-        "plain_ms": timing.host_paced_ms(lambda: cuda_match.hamming_top2_plain(a, b, valid), reps=20, warmup=2),
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_kind": "int8_tensor" if ops_ms >= bytes_ms else "memory",
-        "share_of_bound": max(ops_ms, bytes_ms) / ms, "library_ms": None,
-        "host_paced_ms": timing.host_paced_ms(lambda: cuda_match.hamming_top2(a, b, valid)),
-    }
 
 
 def tracker_kernel_cases(tracker, frame0):
@@ -562,9 +523,8 @@ def golden_replay(golden, dev):
     frames = rendered.frames
     n_px = int((frames != golden.render_golden(GOLDEN_FRAMES, cspec, "cpu").frames).sum())
     check(n_px == 0, f"golden frames: the card's and the CPU's renders differ on {n_px} of {frames.numel()} pixels")
-    rep, tr = golden.run_golden(GOLDEN_FRAMES, dev, count_waits=True, rendered=rendered)
+    rep, tr = golden.run_golden(GOLDEN_FRAMES, dev, rendered=rendered)
     line = {k: rep.get(k) for k in GOLDEN_KEYS}
-    line.update(wait_summary(tr))
     print("golden " + json.dumps(line), flush=True)
     replay_gates("golden", rep, JAX_GOLDEN_100, GOLDEN_FRAMES)
     return line, tr, rendered
@@ -572,19 +532,7 @@ def golden_replay(golden, dev):
 
 GOLDEN_KEYS = ("frames", "tracked", "first_tracked", "keyframes_created", "keyframes_live", "points",
                "ate_rmse_raw_m", "ate_rmse_m", "kf_ate_rmse_m", "frames_per_s", "median_frame_ms",
-               "kf_stage_ms", "kf_stage_device_ms", "frame_stage_ms", "kf_frame_ids")
-
-
-def wait_summary(tr):
-    """Host waits per hot-path, keyframe and initialization frame, with their sources."""
-    line = {}
-    for kind in ("hot", "keyframe", "init"):
-        waits = [w for w in tr.frame_waits if w[1] == kind]
-        sources = sum((w[3] for w in waits), Counter())
-        line[f"{kind}_frames"] = len(waits)
-        line[f"host_waits_per_{kind}_frame"] = float(np.mean([w[2] for w in waits])) if waits else None
-        line[f"host_wait_sources_{kind}"] = dict(sources.most_common(8))
-    return line
+               "kf_stage_ms", "frame_stage_ms", "kf_frame_ids")
 
 
 def replay_gates(name, rep, ref, n_frames, depth=False):
@@ -645,11 +593,10 @@ def flagship_replay(golden, dev, golden_frames):
     n_pdet = sum(int(p.valid.sum()) for p, _ in rendered.dets)
     n_cdet = sum(int(c.valid.sum()) for _, c in rendered.dets)
     print(f"flagship detections: {n_pdet} planes and {n_cdet} cuboids over {FLAGSHIP_FRAMES} frames", flush=True)
-    rep, tr = golden.run_golden(FLAGSHIP_FRAMES, dev, count_waits=True, rendered=rendered, flagship=True)
+    rep, tr = golden.run_golden(FLAGSHIP_FRAMES, dev, rendered=rendered, flagship=True)
     line = {k: rep.get(k) for k in GOLDEN_KEYS + ("planes", "cuboids", "rescales", "ba_mono_factors",
                                                   "ba_plane_obs_factors", "ba_cub_bbox_factors")}
     line["rescale_fired"] = rep["rescales"] > 0
-    line.update(wait_summary(tr))
     print("flagship " + json.dumps(line), flush=True)
     ref = JAX_FLAGSHIP_200
     replay_gates("flagship", rep, ref, FLAGSHIP_FRAMES)
@@ -679,10 +626,9 @@ def rgbd_replay(golden, dev, golden_frames, read_launches):
     n = golden_frames.shape[0]
     n_px = int((rendered.frames[:n] != golden_frames).sum())
     check(n_px == 0, f"rgbd frames: the first {n} equal to phase 7's ({n_px} pixels differ)")
-    rep, tr = golden.run_golden(RGBD_FRAMES, dev, count_waits=True, rendered=rendered, rgbd=True)
+    rep, tr = golden.run_golden(RGBD_FRAMES, dev, rendered=rendered, rgbd=True)
     launches = read_launches()
     line = {k: rep.get(k) for k in GOLDEN_KEYS + SEMANTIC_KEYS + ("stereo_factors", "online_planes")}
-    line.update(wait_summary(tr))
     print("rgbd " + json.dumps(line), flush=True)
     ref = JAX_RGBD_100
     replay_gates("rgbd", rep, ref, RGBD_FRAMES, depth=True)
@@ -720,10 +666,9 @@ def stereo_replay(golden, dev, golden_frames, read_launches):
     n = min(golden_frames.shape[0], STEREO_FRAMES)
     n_px = int((rendered.frames[:n] != golden_frames[:n]).sum())
     check(n_px == 0, f"stereo left frames: equal to phase 7's ({n_px} pixels differ)")
-    rep, tr = golden.run_golden(STEREO_FRAMES, dev, count_waits=True, rendered=rendered, stereo=True)
+    rep, tr = golden.run_golden(STEREO_FRAMES, dev, rendered=rendered, stereo=True)
     launches = read_launches()
     line = {k: rep.get(k) for k in GOLDEN_KEYS + ("stereo_factors", "stereo_matches")}
-    line.update(wait_summary(tr))
     print("stereo " + json.dumps(line), flush=True)
     ref = JAX_STEREO_100
     replay_gates("stereo", rep, ref, STEREO_FRAMES, depth=True)
@@ -1093,14 +1038,13 @@ def loops_replay(golden, dev, rendered, read_launches, trace_paths):
 
     os.environ["TPUSLAM_TRACE"], lp._DEBUG_PATH = trace_paths["trace"], trace_paths["loop"]
     try:
-        rep, tr = golden.run_golden(LOOPS_FRAMES, dev, count_waits=True, rendered=rendered, loops=True)
+        rep, tr = golden.run_golden(LOOPS_FRAMES, dev, rendered=rendered, loops=True)
     finally:
         del os.environ["TPUSLAM_TRACE"]
         lp._DEBUG_PATH = ""
     launches = read_launches()
     line = {k: rep.get(k) for k in GOLDEN_KEYS + ("loops", "loop_gates", "mean_frame_s")}
     line["loop_ms_per_keyframe"] = {k: v for k, v in rep["kf_stage_ms"].items() if k.startswith(("loop_", "kf_loop"))}
-    line.update(wait_summary(tr))
     print("loops " + json.dumps(line), flush=True)
     ref = JAX_GOLDEN_LOOPS_100
     replay_gates("loops", rep, ref, LOOPS_FRAMES)
@@ -2046,11 +1990,11 @@ def feature_replay_phase(dev, cuda_match, read_launches, reset_launches):
                                ("rgbd", SYN_RGBD_FRAMES, True, JAX_SYNTHETIC_RGBD_60)):
         tag = f"feature replay {name}"
         reset_launches()
-        rep, tr = feature_replay.run(n, dev, rgbd=rgbd, count_waits=True)
+        rep, tr = feature_replay.run(n, dev, rgbd=rgbd)
         got = read_launches()
         launches.update(got)
         line[name] = {k: rep.get(k) for k in GOLDEN_KEYS + SEMANTIC_KEYS + ("stereo_factors",)}
-        line[name].update(map_ba_ms_per_keyframe=rep["kf_stage_ms"].get("map_ba"), launches=got, **wait_summary(tr))
+        line[name].update(map_ba_ms_per_keyframe=rep["kf_stage_ms"].get("map_ba"), launches=got)
         print(f"feature_replay {name} " + json.dumps(line[name]), flush=True)
         replay_gates(tag, rep, ref, n, depth=rgbd)
         if not rgbd:  # the depth gates hold this already
@@ -2260,7 +2204,7 @@ def main() -> int:
     from tpuslam_torch import workload
     from tpuslam_torch.apps import golden
     from tpuslam_torch.io import png
-    from tpuslam_torch.kernels import build, cuda_fast, cuda_match, orb, timing
+    from tpuslam_torch.kernels import build, cuda_fast, cuda_match, orb
     from tpuslam_torch.place import dbow_compat
 
     card = card_line()
@@ -2309,7 +2253,7 @@ def main() -> int:
         },
         cuda_fast, orb,
     )
-    k1 = time_k1(pyr0, wl.extractor.live_dims, cuda_fast, orb, timing)
+    check(int((orb.fast_nms_plain(pyr0) > 0).sum()) > 0, "K1 main path has corners")
     f1 = wl.extractor(wl.frames[1])
     kf_valid = (wl.kf0_pt >= 0) & wl.kf0.valid
     rand_valid = torch.from_numpy(np.random.RandomState(2).rand(4096) > 0.2).to(dev)
@@ -2327,7 +2271,6 @@ def main() -> int:
         },
         cuda_match,
     )
-    k2 = time_k2(wl.kf0.desc, wl.map.kf_desc[0], kf_valid, cuda_match, timing)
 
     phase_s["kernel_checks"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -2600,8 +2543,8 @@ def main() -> int:
                                            launches_cli, launches_loc, *launches_depth.values(), launches_pipe,
                                            launches_stream, launches_repeat, launches_diag, launches_feat,
                                            launches_pg)),
-         "max_abs_err": err, **k}
-        for name, mod, k, err in (("fast_nms", cuda_fast, k1, k1_err), ("hamming_top2", cuda_match, k2, k2_err))
+         "max_abs_err": err}
+        for name, mod, err in (("fast_nms", cuda_fast, k1_err), ("hamming_top2", cuda_match, k2_err))
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,13 +10,10 @@ reader and a sensor to it; ``apps/golden.py`` drives ``run_loop`` and
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
 import time
-import warnings
-from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -212,8 +209,7 @@ class LoopTimes(NamedTuple):
     wall_s: float  # the whole loop, reads and decodes included
 
 
-def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False, per_frame=None, viz_every: int = 0,
-             viz_dir: str = ""):
+def run_loop(tracker: Tracker, items, prof: Profiler, per_frame=None, viz_every: int = 0, viz_dir: str = ""):
     """Drive the tracker over ``(frame_id, gray)`` items, ``(frame_id, gray,
     depth)`` for an RGB-D tracker and ``(frame_id, left, right)`` for a
     stereo one (common.py:167-215 of the reference: a stereo item goes to
@@ -229,22 +225,16 @@ def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False,
     Returns :class:`LoopTimes`: each frame's wall time around the
     tracker's call, and the whole loop's, which also spans every item's
     read, decode and upload (a reader decodes its files in ``next``), the
-    tracker's flush and the device's last work.  With ``count_waits`` on a CUDA
-    tracker, ``tracker.frame_waits`` gets one entry per frame: (frame id,
-    kind, host waits, their sources).  The kind is "keyframe" when the call
-    made a keyframe, "init" when the tracker was not tracking before it (its
-    keyframes included), else "hot".  The waits are what torch's sync debug mode reports (the
-    tracker's reads among them) plus the tracker's waits on CUDA events,
-    which that mode does not see.  With ``viz_every`` > 0, every frame whose id
-    it divides dumps the frame overlay and the map into ``viz_dir``
-    (``frame_%05d.png``, ``map_%05d.png``), as the reference's loop does."""
+    tracker's flush and the device's last work.  With ``viz_every`` > 0,
+    every frame whose id it divides dumps the frame overlay and the map into
+    ``viz_dir`` (``frame_%05d.png``, ``map_%05d.png``), as the reference's
+    loop does."""
     t_loop = time.perf_counter()
     if viz_every:
         os.makedirs(viz_dir, exist_ok=True)
     dev = tracker.device
     sensor = tracker.cfg.sensor
     frame_times = []
-    tracker.frame_waits = []
     it = iter(items)
 
     def staged(item):
@@ -255,33 +245,15 @@ def run_loop(tracker: Tracker, items, prof: Profiler, count_waits: bool = False,
         nxt = staged(next(it, None))
         fid, gray = cur[:2]
         t0 = time.perf_counter()
-        n_kf, events0 = len(tracker._kf_fids), tracker.waits.get("event", 0)
-        tracking = tracker.state == tracker.OK
-        counting = count_waits and dev.type == "cuda"
-        if counting:
-            torch.cuda.set_sync_debug_mode("warn")
-        ctx = warnings.catch_warnings(record=True) if counting else contextlib.nullcontext([])
-        with ctx as caught:
-            if counting:
-                warnings.simplefilter("always")
-            pdet, cdet = per_frame(cur) if per_frame is not None else (None, None)
-            with prof.section("time single frame"):
-                if isinstance(gray, Frame):
-                    tracker.process_frame(gray, fid, plane_det=pdet, cuboid_det=cdet)
-                elif sensor == "stereo" and cur[2] is not None:
-                    tracker.process_stereo_pair(gray, cur[2], fid, plane_det=pdet, cuboid_det=cdet)
-                else:
-                    tracker.process_image(gray, fid, depth=cur[2] if sensor == "rgbd" and len(cur) > 2 else None,
-                                          plane_det=pdet, cuboid_det=cdet)
-        if counting:
-            torch.cuda.set_sync_debug_mode("default")
-            syncs = Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
-                            if "synchroniz" in str(w.message))
-            events = tracker.waits.get("event", 0) - events0
-            if events:
-                syncs["cuda event"] = events
-            kind = "init" if not tracking else "keyframe" if len(tracker._kf_fids) > n_kf else "hot"
-            tracker.frame_waits.append((fid, kind, sum(syncs.values()), syncs))
+        pdet, cdet = per_frame(cur) if per_frame is not None else (None, None)
+        with prof.section("time single frame"):
+            if isinstance(gray, Frame):
+                tracker.process_frame(gray, fid, plane_det=pdet, cuboid_det=cdet)
+            elif sensor == "stereo" and cur[2] is not None:
+                tracker.process_stereo_pair(gray, cur[2], fid, plane_det=pdet, cuboid_det=cdet)
+            else:
+                tracker.process_image(gray, fid, depth=cur[2] if sensor == "rgbd" and len(cur) > 2 else None,
+                                      plane_det=pdet, cuboid_det=cdet)
         frame_times.append(time.perf_counter() - t0)
         if viz_every and fid % viz_every == 0 and tracker.last_frame is not None:
             _dump_viz(tracker, fid, gray, viz_dir)
@@ -429,10 +401,6 @@ def finish(tracker: Tracker, times: LoopTimes, gt=None, out_dir: str = "", metri
         report["stereo_matches"] = float(np.median([int(n) for n in tracker.stereo_matches]))
     if decode_ms:
         report["decode_ms_per_image"] = {k: float(np.mean(v)) for k, v in decode_ms.items()}
-    if tracker.device.type == "cuda":
-        report["kf_stage_device_ms"] = {
-            k: v / n_created for k, v in sorted(tracker.stage_device_ms().items())
-        }
     if gt is not None and corrected:
         est = [(f, p) for f, p in corrected if f < len(gt)]
         scale = not metric

@@ -74,14 +74,14 @@ def render(n_frames: int, device, rgbd: bool = False):
     return scene, cam, frames, dets
 
 
-def run(n_frames: int, device="cuda:0", rgbd: bool = False, count_waits: bool = False):
+def run(n_frames: int, device="cuda:0", rgbd: bool = False):
     """Render, track, report.  Returns (report, tracker)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     scene, cam, frames, dets = render(n_frames, device, rgbd)
     tracker = Tracker(cam, config(rgbd), device=device)
     per_frame = (lambda item: dets[item[0]]) if rgbd else None
-    times = run_loop(tracker, enumerate(frames), Profiler(), count_waits=count_waits, per_frame=per_frame)
+    times = run_loop(tracker, enumerate(frames), Profiler(), per_frame=per_frame)
     gt = scene.poses.astype(np.float64)
     rep = finish(tracker, times, gt=gt, metric=rgbd)
     rep.update(first_tracked=tracker.trajectory[0][0] if tracker.trajectory else None,

@@ -147,9 +147,8 @@ def render_golden(n_frames: int, cspec, device, cfg=None, depth: bool = False, r
     return Rendered(frames=host(out[0]), gt=gt, dets=dets, depth=host(out[-1]) if depth else None, right=rgt)
 
 
-def run_golden(n_frames: int = 200, device="cuda:0", small: bool = False, count_waits: bool = False,
-               rendered: Optional[Rendered] = None, flagship: bool = False, rgbd: bool = False,
-               stereo: bool = False, loops: bool = False):
+def run_golden(n_frames: int = 200, device="cuda:0", small: bool = False, rendered: Optional[Rendered] = None,
+               flagship: bool = False, rgbd: bool = False, stereo: bool = False, loops: bool = False):
     """Render, track, report.  ``rendered``: what :func:`render_golden`
     returns, to replay instead of rendering on ``device``.  ``flagship``:
     planes and objects; ``rgbd``: RGB-D with online planes and objects;
@@ -178,7 +177,7 @@ def run_golden(n_frames: int = 200, device="cuda:0", small: bool = False, count_
     extra = rendered.depth if rgbd else rendered.right if stereo else None
     prof = Profiler()
     items = ((i, frames[i]) + (() if extra is None else (extra[i],)) for i in range(n_frames))
-    times = run_loop(tracker, items, prof, count_waits=count_waits, per_frame=per_frame)
+    times = run_loop(tracker, items, prof, per_frame=per_frame)
     rep = finish(tracker, times, gt=gt, metric=rgbd or stereo)
     rep.update(first_tracked=tracker.trajectory[0][0] if tracker.trajectory else None,
                median_frame_ms=1e3 * rep["median_frame_s"],

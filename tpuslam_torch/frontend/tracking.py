@@ -516,8 +516,6 @@ class Tracker:
         # host's waits wait_*, the keyframe chain's kf_* and map_*
         self.stage_ms = {}
         self.spans = Spans(self.stage_ms)
-        self._stage_events = []  # (name, start, end) CUDA events of kf_* and map_*, resolved lazily
-        self._stage_device_ms = {}
         self.waits = {}  # explicit host waits on the device, by kind
         self.velocity = np.eye(4, dtype=np.float32)
         self.T_cur = np.eye(4, dtype=np.float32)
@@ -571,22 +569,6 @@ class Tracker:
             if self.device.type == "cuda":
                 self.waits["read"] = self.waits.get("read", 0) + 1
             return t.cpu().numpy()
-
-    def _laps(self, key: str):
-        """Sequential keyframe-chain stages from ``key`` on: host wall ms,
-        and device ms (between CUDA events) when :meth:`stage_device_ms`
-        reads them."""
-        return self.spans.laps(key, events=self._stage_events if self.device.type == "cuda" else None)
-
-    def stage_device_ms(self) -> dict:
-        """Cumulative device ms per keyframe stage: the time between CUDA
-        events recorded at the stage boundaries (waits for the device)."""
-        if self._stage_events:
-            self._stage_events[-1][2].synchronize()
-            for name, a, b in self._stage_events:
-                self._stage_device_ms[name] = self._stage_device_ms.get(name, 0.0) + a.elapsed_time(b)
-            self._stage_events = []
-        return dict(self._stage_device_ms)
 
     # -- public API -----------------------------------------------------------
 
@@ -1141,7 +1123,7 @@ class Tracker:
         return int(free[np.argmin(fids[free])])
 
     def _create_keyframe(self, frame: Frame, frame_id: int, kp_pt, T_dev=None):
-        with self._laps("kf_add") as lap:
+        with self.spans.laps("kf_add") as lap:
             slot = self._alloc_kf_slot()
             if slot is None:
                 return
@@ -1296,7 +1278,7 @@ class Tracker:
         points, triangulate with neighbours, fuse, local BA, cull keyframes.
         Enqueued without waiting, apart from eigh's check in triangulation."""
         cfg = self.cfg
-        with self._laps("map_tri") as lap:
+        with self.spans.laps("map_tri") as lap:
             f = self._kf_fids
             fid_recent_min = f[-4] if len(f) >= 4 else 0
             fid_old_max = f[-3] if len(f) >= 3 else -(1 << 30)

@@ -120,40 +120,29 @@ class _Laps:
     """Sequential stages of one block: :meth:`next` closes the open stage,
     adding its ms, and opens the named one at the same instant; :meth:`end`
     closes it.  A stage still open when the ``with`` block is left (an
-    early return) is dropped: its range closes, its time is not added.
-    With ``events`` (a list), each closed stage also appends ``(key, start,
-    end)`` CUDA events recorded at its bounds."""
+    early return) is dropped: its range closes, its time is not added."""
 
-    def __init__(self, spans, key: str, events):
-        self.spans, self.events = spans, events
-        self.key, self.rf, self.t0, self.e0 = key, None, 0.0, None
+    def __init__(self, spans, key: str):
+        self.spans = spans
+        self.key, self.rf, self.t0 = key, None, 0.0
 
-    def _mark(self):
-        ev = None
-        if self.events is not None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-        return time.perf_counter(), ev
-
-    def _close(self, add: bool):
-        t1, e1 = mark = self._mark()
+    def _close(self, add: bool) -> float:
+        t1 = time.perf_counter()
         if self.rf is not None:
             self.rf.__exit__(None, None, None)
             self.rf = None
         if add and self.key is not None:
             self.spans.add(self.key, (t1 - self.t0) * 1e3)
-            if e1 is not None:
-                self.events.append((self.key, self.e0, e1))
         self.key = None
-        return mark
+        return t1
 
-    def _open(self, key: str, mark):
+    def _open(self, key: str, t0: float):
         self.key = key
         self.rf = _range_enter(self.spans.prefix, key)
-        self.t0, self.e0 = mark
+        self.t0 = t0
 
     def __enter__(self):
-        self._open(self.key, self._mark())
+        self._open(self.key, time.perf_counter())
         return self
 
     def next(self, key: str):
@@ -189,10 +178,10 @@ class Spans:
         """``with spans.span(key):`` times the block; spans nest."""
         return _Span(self, key)
 
-    def laps(self, key: str, events: list = None):
+    def laps(self, key: str):
         """``with spans.laps(first) as lap:`` opens stage ``first``;
         ``lap.next(key)`` and ``lap.end()`` as :class:`_Laps` says."""
-        return _Laps(self, key, events)
+        return _Laps(self, key)
 
 
 class _NoSpans:
