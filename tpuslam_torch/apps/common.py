@@ -26,6 +26,7 @@ from ..frontend.tracking import Frame, Tracker
 from ..graph import lm
 from ..io.datasets import load_settings_yaml
 from ..io.trajectory import ate_rmse, save_cuboids, save_kitti, save_planes, save_tum
+from ..kernels import cuda_pose
 from ..kernels.orb import OrbExtractor
 from ..place import vocab as vb
 from ..utils.profiler import Profiler
@@ -332,14 +333,15 @@ def finish(tracker: Tracker, times: LoopTimes, gt=None, out_dir: str = "", metri
     ``loop_*``), the frame program's and the host waits' ms per tracked
     frame ``frame_stage_ms`` (``frame_*``, ``wait_*``; a tracked frame is
     one run of the frame program), the process's pose-LM calls by path
-    ``pose_graph`` (``graph/lm.py:pose_graph_counts``: CUDA graphs captured,
-    graph replays, eager calls, eager calls on a card), its local BAs
-    ``ba_graph`` (``lm.ba_graph_counts``, the same counts), and with ``gt``
-    (world->camera poses by frame id) the ATE of the corrected, the raw and
-    the live keyframe trajectories, Sim3-aligned, or with ``metric`` (the
-    depth sensors' metric maps) SE3-aligned without scale (common.py:365,
-    :372, :389).  With ``out_dir``, also the TUM files and CuboidPose.txt /
-    PlanePose.txt, and with ``save_kitti_traj`` CameraTrajectory_kitti.txt;
+    ``pose_lm`` (``kernels/cuda_pose.counts``: kernel launches, plain calls
+    on the CPU), its local BAs ``ba_graph`` (``graph/lm.py:ba_graph_counts``:
+    CUDA graphs captured, graph replays, eager calls, eager calls on a
+    card), and with ``gt`` (world->camera poses by frame id) the ATE of the
+    corrected, the raw and the live keyframe trajectories, Sim3-aligned, or
+    with ``metric`` (the depth sensors' metric maps) SE3-aligned without
+    scale (common.py:365, :372, :389).  With ``out_dir``, also the TUM
+    files and CuboidPose.txt / PlanePose.txt, and with ``save_kitti_traj``
+    CameraTrajectory_kitti.txt;
     ``checkpoint``: a map checkpoint written there (``io/checkpoint.py``).
     The port adds ``relocalized`` and ``vo_frames`` (frames placed by
     relocalization and by localization mode's visual odometry), for a
@@ -392,7 +394,7 @@ def finish(tracker: Tracker, times: LoopTimes, gt=None, out_dir: str = "", metri
         "kf_stage_ms": {k: v / n_created for k, v in sorted(stage_ms.items())},
         "frame_stage_ms": {k: v / n_tracked for k, v in sorted(tracker.stage_ms.items())
                            if k.startswith(per_frame)},
-        "pose_graph": lm.pose_graph_counts(),
+        "pose_lm": cuda_pose.counts(),
         "ba_graph": lm.ba_graph_counts(),
         "relocalized": tracker.n_relocalized,
         "vo_frames": tracker.n_vo,

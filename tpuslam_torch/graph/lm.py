@@ -16,16 +16,18 @@ iteration whose round has converged changes nothing: ``T``, ``lam`` and the
 step norm are frozen where ``active = dn > 1e-6`` is false.  The result is
 that of the early exit.
 
-On a CUDA device ``optimize_pose`` runs the whole LM, and ``local_ba`` both
-its phases, as one CUDA graph per input signature (:func:`pose_graph_key`,
-:func:`ba_graph_key`; ``utils/cuda_graph.py``): the first call of a
-signature captures the eager body, :func:`_optimize_pose_body` or
-:func:`_local_ba_body`, into static buffers; every call copies its inputs
-into them, replays the graph on the current stream and returns copies of
-the outputs.  The replay issues the kernels the body issues, with the same
-arguments, in the same order.  CPU tensors run the body eagerly.
-:func:`pose_graph_counts` and :func:`ba_graph_counts` say which way the
-calls went.
+On a CUDA device ``optimize_pose`` is one launch of a hand-written kernel
+(``kernels/csrc/pose_lm.cu``, through ``kernels/cuda_pose.py``), which
+computes what :func:`_optimize_pose_body` computes and ends a round for real
+where the body freezes it; CPU tensors run the body.  ``local_ba`` runs both
+its phases as one CUDA graph per input signature (:func:`ba_graph_key`;
+``utils/cuda_graph.py``): the first call of a signature captures the eager
+body, :func:`_local_ba_body`, into static buffers; every call copies its
+inputs into them, replays the graph on the current stream and returns
+copies of the outputs.  The replay issues the kernels the body issues, with
+the same arguments, in the same order.  CPU tensors run the body eagerly.
+``cuda_pose.counts()`` and :func:`ba_graph_counts` say which way the calls
+went.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core import geometry as geo
+from ..kernels import cuda_pose
 from ..utils import cuda_graph
 from . import factors as fac
 from .schur import schur_solve
@@ -70,49 +73,13 @@ def optimize_pose(
     with inliers re-classified by chi2 between rounds.  Observations with
     ``ur >= 0`` add the stereo row, gated at ``chi2_th_stereo``.
 
-    Returns (T_opt (4, 4), inlier mask (N,), n_inliers () int32), tensors
-    of the caller's own (never a graph's static buffer).
-
-    CUDA tensors replay the signature's CUDA graph (captured at its first
-    call), on the inputs' device whichever device is current; CPU tensors,
-    a stream that is itself capturing, constants that are not Python
-    numbers, inputs on more than one device, and a signature whose capture
-    failed run the eager body.  Either way the result is the body's."""
-    tensors = (T_init, points, uv, inv_sigma2, valid, ur)
-    consts = (fx, fy, cx, cy, chi2_th, rounds, iters_per_round, bf, chi2_th_stereo)
-    return cuda_graph.run(_run_body, tensors, consts, points.device, _POSE_GRAPHS, _POSE_GRAPH_COUNTS,
-                          "optimize_pose", "pose_graph_capture")
-
-
-# per-process cache: pose_graph_key -> cuda_graph.Graph, or None once its capture failed
-_POSE_GRAPHS: dict = {}
-_POSE_GRAPH_COUNTS = cuda_graph.new_counts()
-
-
-def pose_graph_counts() -> dict:
-    """``optimize_pose`` calls so far in this process: graphs captured
-    (``captures``), calls that replayed one (``replays``), calls that ran
-    the eager body (``eager``: CPU tensors and every fallback), and of
-    those the calls on a CUDA device (``fallbacks``: a capturing stream,
-    constants that are not numbers, a signature whose capture failed)."""
-    return dict(_POSE_GRAPH_COUNTS)
-
-
-def pose_graph_key(tensors, consts):
-    """What a captured graph of ``optimize_pose`` is specific to: the device,
-    each tensor input's shape, strides and dtype (``None`` for an absent
-    ``ur``), and the constants (camera, thresholds, trip counts), which the
-    graph holds as kernel arguments.  None where a constant is not a Python
-    number or an input lies on another device: the graph cannot stand for
-    the call."""
-    return cuda_graph.signature_key(tensors[1].device, tensors, consts)
-
-
-def _run_body(tensors, consts):
-    T_init, points, uv, inv_sigma2, valid, ur = tensors
-    fx, fy, cx, cy, chi2_th, rounds, iters_per_round, bf, chi2_th_stereo = consts
-    return _optimize_pose_body(T_init, points, uv, inv_sigma2, valid, fx, fy, cx, cy, chi2_th, rounds,
-                               iters_per_round, ur, bf, chi2_th_stereo)
+    Returns (T_opt (4, 4), inlier mask (N,), n_inliers () int32), new
+    tensors.  CUDA tensors launch ``kernels/csrc/pose_lm.cu`` on the inputs'
+    device, whichever device is current (``cuda_pose.pose_lm``, which checks
+    the inputs and raises on what the kernel does not take); CPU tensors run
+    :func:`_optimize_pose_body`."""
+    return cuda_pose.pose_lm(T_init, points, uv, inv_sigma2, valid, fx, fy, cx, cy, chi2_th, rounds,
+                             iters_per_round, ur, bf, chi2_th_stereo)
 
 
 def _optimize_pose_body(
@@ -132,8 +99,8 @@ def _optimize_pose_body(
     bf: float = 0.0,
     chi2_th_stereo: float = 7.815,
 ):
-    """The eager LM of :func:`optimize_pose`, the body its CUDA graphs
-    capture: no host read, fixed shapes and trip counts."""
+    """The plain LM of :func:`optimize_pose`, which CPU tensors run: no host
+    read, fixed shapes and trip counts."""
     T_init = geo.se3_renorm(T_init)
     n = points.shape[0]
     dev, dt = points.device, points.dtype
@@ -995,8 +962,8 @@ _BA_SLOTS = (("stereo", StereoFactors), *BUNDLES.items())
 
 
 def ba_graph_counts() -> dict:
-    """``local_ba`` calls so far in this process, by path, as
-    :func:`pose_graph_counts` gives the pose LM's."""
+    """``local_ba`` calls so far in this process, by path
+    (``utils/cuda_graph.new_counts``)."""
     return dict(_BA_GRAPH_COUNTS)
 
 

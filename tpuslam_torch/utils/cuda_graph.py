@@ -1,10 +1,10 @@
 """An eager function replayed as CUDA graphs, one per input signature.
 
-``graph/lm.py`` runs the motion-only pose LM and the two-phase local BA
-this way on a card.  :func:`run` calls ``body(tensors, consts)``, a
-function of a flat tuple of tensors (``None`` where an input is absent)
-and a tuple of Python numbers that returns a flat tuple of tensors, reads
-nothing back to the host and has fixed shapes and trip counts.
+``graph/lm.py`` runs the two-phase local BA this way on a card.  :func:`run`
+calls ``body(tensors, consts)``, a function of a flat tuple of tensors
+(``None`` where an input is absent) and a tuple of Python numbers that
+returns a flat tuple of tensors, reads nothing back to the host and has
+fixed shapes and trip counts.
 
 On a CUDA device the first call of a signature (:func:`signature_key`)
 captures ``body`` on static copies of its inputs; every call copies its
